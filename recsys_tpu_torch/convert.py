@@ -1,4 +1,4 @@
-"""Weights from the JAX package's layout into the port's modules.
+"""Weights and optimizer state from the JAX package's layout into the port.
 
 ``params`` is the flax ``params`` tree of the JAX DLRM as nested dicts of
 numpy arrays (``np.asarray`` of each leaf; bf16 leaves may carry numpy's
@@ -76,3 +76,24 @@ def params_from_jax(params: dict, schema: FeatureSchema, model) -> dict:
     for i, (name, module) in enumerate(towers):
         state.update(_tower(name, params[f"{kind}_{i}"], module))
     return state
+
+
+def embedding_state_from_jax(emb_state: dict, schema: FeatureSchema, model) -> dict:
+    """The JAX Trainer's embedding optimizer state (``opt_state['emb']``,
+    numpy leaves) -> the port Trainer's ``emb_state``.
+
+    Adam's ``m`` and ``v`` are packed like their tables, ``(V_phys,
+    pack·D)``, and unpack with ``reshape(-1, D)[:V]``; rowwise AdaGrad's
+    ``acc`` is ``(V_phys, pack)``, one value per vocab row, and unpacks
+    with ``reshape(-1)[:V]``."""
+    d = schema.embed_dim
+    _, _, group_vocab = group_assignment(schema, len(model.embedding.group_vocab))
+    out = {}
+    for g, v in enumerate(group_vocab):
+        name, rows = f"table_{g}", max(v, 1)
+        if name not in emb_state:
+            continue
+        out[name] = {k: _tensor(np.asarray(a).reshape(-1, d)[:rows] if k in ("m", "v")
+                                else np.asarray(a).reshape(-1)[:rows])
+                     for k, a in emb_state[name].items()}
+    return out

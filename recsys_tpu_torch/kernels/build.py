@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled on its own by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 All sources compile in parallel.  Libraries go to ``build/recsys_tpu_torch/``
 at the root of the checkout, named by a hash of their source, so an edited
-source is rebuilt and an unchanged one is reused.  Pointers and the stream
+source (or a shared ``csrc/*.cuh`` header) is rebuilt and an unchanged one
+is reused.  Pointers and the stream
 go in as ``c_void_p``; every launch function returns ``cudaGetLastError()``.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each library's entry points: name -> (restype, argtypes)
 SIGNATURES = {
     "dot_interaction": {
@@ -33,6 +35,18 @@ SIGNATURES = {
     "mlp_fwd": {
         "mlp_fwd_smem_bytes": (ctypes.c_longlong, [_P, _I, _I]),
         "mlp_fwd_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    },
+    "mlp_bwd": {
+        "mlp_bwd_smem_bytes": (ctypes.c_longlong, [_P, _I, _I]),
+        "mlp_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _P]),
+    },
+    "embedding_update": {
+        "embedding_adam_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                                       _P]),
+        "embedding_rowwise_adagrad_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                                  _I, _I, _I, _F, _F, _F, _P]),
     },
 }
 
@@ -47,7 +61,8 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

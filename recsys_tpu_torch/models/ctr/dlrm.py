@@ -6,7 +6,8 @@ interaction, top MLP.
   I = pairwise dots of [z, E]                (B, (F+1)F/2)
   logit = top_mlp([z, I])
 
-The dot interaction runs through the CUDA kernel on a CUDA tensor.  The
+The dot interaction runs through the CUDA kernel on a CUDA tensor, with
+its backward in torch ops (``dispatch.DotInteraction``).  The
 casts repeat the JAX package's DLRM exactly: field embeddings in the compute
 dtype, the bottom output cast to the field dtype for the concat, the dot
 output in f32, ``top_in`` concatenated in f32 and the logits returned f32.
@@ -31,6 +32,8 @@ class DLRM(nn.Module):
     both towers through the fused MLP kernel; ``dense_microbatch`` runs the
     dense tail as N slices of the batch while the embedding gather stays
     whole-batch (a batch that N does not divide runs unsliced);
+    ``sparse_embed_grads`` turns on the tables' ``perturb_out`` tap, which
+    the fused embedding optimizers of ``Trainer`` need;
     ``embed_kw`` passes ``param_dtype`` / ``num_groups`` to the tables."""
 
     def __init__(self, schema: FeatureSchema,
@@ -40,6 +43,7 @@ class DLRM(nn.Module):
                  compute_dtype: torch.dtype | None = None,
                  fused_mlps: bool = False,
                  dense_microbatch: int = 1,
+                 sparse_embed_grads: bool = False,
                  embed_kw: dict | None = None,
                  device=None):
         super().__init__()
@@ -48,7 +52,8 @@ class DLRM(nn.Module):
         self.compute_dtype = compute_dtype
         self.dense_microbatch = dense_microbatch
         d = schema.embed_dim
-        self.embedding = StackedEmbedding(schema, device=device, **(embed_kw or {}))
+        self.embedding = StackedEmbedding(schema, perturb_out=sparse_embed_grads,
+                                          device=device, **(embed_kw or {}))
 
         def make_mlp(in_dim, units, out_dim):
             if fused_mlps:
@@ -68,7 +73,7 @@ class DLRM(nn.Module):
         if self.has_dense:
             bottom = self.bottom(dense)
             feats = torch.cat([bottom[:, None, :].to(field_embs.dtype), field_embs], dim=1)
-        inter = dispatch.dot_interaction(feats, self.self_interaction)
+        inter = dispatch.DotInteraction.apply(feats.contiguous(), self.self_interaction)
         top_in = inter if bottom is None else torch.cat(
             [bottom.to(inter.dtype), inter], dim=-1
         )

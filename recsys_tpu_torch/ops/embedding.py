@@ -49,12 +49,24 @@ class StackedEmbedding(nn.Module):
     ``forward`` takes field-local IDs shaped (B, F) ordered like
     ``schema.sparse`` and returns (B, F, D) in ``param_dtype``.  Table ``g``
     is the parameter ``table_{g}``, shaped (V_g, D).
+
+    ``perturb_out`` is the tap of the fused embedding optimizers (the JAX
+    package's ``perturb_out``): when gradients are on and the tables are
+    frozen (``requires_grad`` False, as ``Trainer`` sets them for a fused
+    ``embedding_optimizer``), the gather runs outside autograd and its
+    output becomes a leaf that requires grad, kept as ``self.tap``.  After
+    ``backward`` its ``.grad`` is the per-occurrence (B, F, D) cotangent of
+    the gathered rows, in the table dtype; no dense (V, D) table gradient
+    is ever allocated.
     """
 
     def __init__(self, schema: FeatureSchema, param_dtype=torch.float32,
-                 num_groups: int | None = None, device=None):
+                 num_groups: int | None = None, perturb_out: bool = False,
+                 device=None):
         super().__init__()
         self.schema = schema
+        self.perturb_out = perturb_out
+        self.tap = None
         d = schema.embed_dim
         group_of, offset_in, group_vocab = group_assignment(schema, num_groups)
         self.group_vocab = list(group_vocab)
@@ -84,7 +96,21 @@ class StackedEmbedding(nn.Module):
     def table(self, g: int) -> torch.Tensor:
         return getattr(self, f"table_{g}")
 
+    def groups(self) -> list[int]:
+        """The group tables that serve at least one sparse column."""
+        return list(self._groups)
+
     def forward(self, sparse_ids: torch.Tensor) -> torch.Tensor:
+        tapped = (self.perturb_out and torch.is_grad_enabled()
+                  and not any(self.table(g).requires_grad for g in self._groups))
+        if tapped:
+            with torch.no_grad():
+                out = self._gather(sparse_ids)
+            self.tap = out.requires_grad_()
+            return out
+        return self._gather(sparse_ids)
+
+    def _gather(self, sparse_ids: torch.Tensor) -> torch.Tensor:
         parts = []
         for g in self._groups:
             rows = sparse_ids.index_select(1, getattr(self, f"cols_{g}")).long()

@@ -1,5 +1,5 @@
 """Dense towers: ``MLP`` (layer by layer, plain PyTorch matmuls) and
-``FusedMLP`` (the whole relu stack in one fused CUDA kernel)."""
+``FusedMLP`` (the whole relu stack in one fused CUDA kernel each way)."""
 from __future__ import annotations
 
 import math
@@ -40,9 +40,10 @@ class MLP(nn.Module):
 
 
 class FusedMLP(nn.Module):
-    """Relu MLP stack through the fused forward kernel
-    (``dispatch.fused_mlp_forward``): hidden activations never leave the
-    kernel.  Numerically the MLP with bf16 matmul inputs and f32
+    """Relu MLP stack through the fused kernels
+    (``dispatch.FusedMLPFunction``: forward ``fused_mlp_forward``, backward
+    ``fused_mlp_backward``, which recomputes the hidden layers): hidden
+    activations never leave the forward kernel.  Numerically the MLP with bf16 matmul inputs and f32
     accumulation (``mm_bf16``) or exact f32.  Params are ``kernel_i``
     (in, out) and ``bias_i`` (1, out), the JAX package's FusedMLP layout."""
 
@@ -61,4 +62,5 @@ class FusedMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ws = [getattr(self, f"kernel_{i}") for i in range(self.num_layers)]
         bs = [getattr(self, f"bias_{i}") for i in range(self.num_layers)]
-        return dispatch.fused_mlp_forward(x.float().contiguous(), ws, bs, self.mm_bf16)
+        return dispatch.FusedMLPFunction.apply(x.float().contiguous(), self.mm_bf16,
+                                               *ws, *bs)

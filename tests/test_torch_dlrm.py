@@ -41,7 +41,8 @@ CASES = {
 def build_pair(compute="f32", fused_mlps=False, dense_microbatch=1, *,
                self_interaction=False, num_groups=None, param_dtype="f32",
                vocab=1000, num_dense=5, num_sparse=4, embed_dim=8,
-               num_examples=64, seed=0, bottom=(16, 8), top=(32, 16)):
+               num_examples=64, seed=0, bottom=(16, 8), top=(32, 16),
+               sparse_embed_grads=False):
     """(JAX model, its params, port model loaded with them, data)."""
     kw = dict(num_examples=num_examples, num_dense=num_dense,
               num_sparse=num_sparse, vocab_size=vocab, embed_dim=embed_dim,
@@ -59,7 +60,7 @@ def build_pair(compute="f32", fused_mlps=False, dense_microbatch=1, *,
                  self_interaction=self_interaction,
                  compute_dtype=jnp.bfloat16 if compute == "bf16" else None,
                  fused_mlps=fused_mlps, dense_microbatch=dense_microbatch,
-                 embed_kw=jembed)
+                 sparse_embed_grads=sparse_embed_grads, embed_kw=jembed)
     jbatch = {"sparse": jnp.asarray(data["sparse"][:8]),
               "dense": jnp.asarray(data["dense"][:8])}
     params = jm.init(jax.random.PRNGKey(seed), jbatch)["params"]
@@ -67,7 +68,7 @@ def build_pair(compute="f32", fused_mlps=False, dense_microbatch=1, *,
               self_interaction=self_interaction,
               compute_dtype=torch.bfloat16 if compute == "bf16" else None,
               fused_mlps=fused_mlps, dense_microbatch=dense_microbatch,
-              embed_kw=tembed, device="cpu")
+              sparse_embed_grads=sparse_embed_grads, embed_kw=tembed, device="cpu")
     np_params = jax.tree_util.tree_map(np.asarray, params)
     tm.load_state_dict(params_from_jax(np_params, schema, tm))
     return jm, params, tm.eval(), data

@@ -86,7 +86,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     xm = torch.randn(6, 8)
     torch.testing.assert_close(dispatch.fused_mlp_forward(xm, tw, tb),
                                mlp_forward(xm, tw, tb))
-    assert dispatch.LAUNCHES == {"dot_interaction": 0, "mlp_fwd": 0}
+    assert set(dispatch.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -113,7 +113,9 @@ def test_default_device_raises_without_a_card(monkeypatch):
 # -- the port stands alone ---------------------------------------------------
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, recsys_tpu_torch.train.loop, recsys_tpu_torch.models.ctr.dlrm, "
-            "recsys_tpu_torch.convert; "
+            "recsys_tpu_torch.convert, recsys_tpu_torch.train.losses, "
+            "recsys_tpu_torch.train.streaming_embed, recsys_tpu_torch.train.sparse_embed, "
+            "recsys_tpu_torch.kernels.embedding_update, mlp_bwd_check; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu')]; print(bad); sys.exit(bool(bad))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -124,7 +126,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_port_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|recsys_tpu)(\.|\s|$)", re.M)
-    files = [*sorted((REPO / "recsys_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    files = [*sorted((REPO / "recsys_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
+             REPO / "mlp_bwd_check.py"]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
 
@@ -133,7 +136,11 @@ def test_every_kernel_source_has_a_bound_c_interface(monkeypatch, tmp_path):
     from recsys_tpu_torch.kernels import build
 
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert stems == set(build.SIGNATURES) == set(dispatch.LAUNCHES)
+    assert stems == set(build.SIGNATURES)
+    # one launch count per kernel entry point
+    launchers = {fn.removesuffix("_launch") for sig in build.SIGNATURES.values()
+                 for fn in sig if fn.endswith("_launch")}
+    assert launchers == set(dispatch.LAUNCHES)
     # the library name follows the source's content, so an edit rebuilds
     src = tmp_path / "k.cu"
     src.write_text("a")
