@@ -34,7 +34,30 @@ checkout.  Phases, one JSON line each:
 6. timing    -- per-kernel ms beside its bound and the plain version's ms;
                 the embedding updates over 26 tables in turn, as a step
                 calls them.
-7. kernels   -- one line naming every kernel with its launches and times.
+7. flash check -- the flash-attention forward and backward kernels against
+                their plain versions (flash_check.py) at the SASRec bench
+                shape (B·H = 512, S = 512, head dim 32), a ragged S = 300,
+                S = 2048 on 16 sequences and head dim 64 with one head;
+                causal on and off; no mask, a random key mask and
+                front-padded histories; each limit shown to reject a wrong
+                result.
+8. sasrec serve -- SASRec at the bench.py widths (50,000 items, D = 64, 2
+                blocks, 2 heads, max_len 512), weights made from the seed in
+                the JAX layout and converted, served by Trainer.predict over
+                256-row requests plus a ragged tail against 20 negatives:
+                HR@10, NDCG@10, launch counts, logits against the plain
+                versions, request time, profile.
+9. sasrec train -- Trainer.fit with pairwise BCE and Adam: the prefix
+                scheme at max_len 512 and 2048 and the all-position scheme
+                at 512; launch counts, finite loss, one more step against
+                the plain step, step time, and a profile of one step split
+                into attention, GEMMs, gathers, loss and optimizer.
+10. sasrec cli -- the cli sasrec flow: synthetic ratings, the numpy
+                dataset builder at max_len 50, fit for 2 epochs, predict and
+                HR@10, on the kernels.
+11. flash timing -- kernel, plain and torch SDPA ms with the bounds, at
+                S = 512 (B = 256) and S = 2048 (B = 32).
+12. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits non-zero; with no card it exits non-zero before any phase.
@@ -42,6 +65,7 @@ the script exits non-zero; with no card it exits non-zero before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import itertools
@@ -118,6 +142,31 @@ STEP_STATE_SHARE = 1e-3
 #   The dense params' Adam first moment, whose step adds 10% of the
 #   gradient: per tensor, the norm of the difference over the norm.
 STEP_MOMENT_RTOL = 1e-2
+
+# SASRec at the bench.py widths (bench.py:258-315)
+SAS_ITEMS = 50_000
+SAS_DIM = 64
+SAS_BLOCKS = 2
+SAS_HEADS = 2
+SAS_LEN = 512
+SAS_LONG = 2048
+SAS_BATCH = 256
+SAS_NEGS = 20           # serving: the positive ranked among 20 negatives
+SAS_REQUESTS = 3
+SAS_TAIL = 100
+SAS_STEPS = 5           # one fit epoch at max_len 512
+SAS_LONG_STEPS = 3      # and at 2048
+SAS_LONG_CHECK = 16     # rows of the 2048 step held against the plain step
+# SASRec tolerances, kernels against plain versions, all exact f32: the
+# attention's sums in another order (flash_check.py) carried through two
+# blocks, 1e-4 on logits and the loss; one Adam step from the same state,
+# as for DLRM but f32: at most 0.1% of the cells of a tensor more than
+# lr/10 apart (a gradient within rounding of zero can flip its step), and
+# the first moment within 1e-3 in relative norm while a 20% short gradient
+# must read more.
+SAS_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+SAS_P_SHARE = 1e-3
+SAS_MOMENT_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -546,10 +595,11 @@ def plain_train_step(tr, batch):
     return loss.detach()
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, classify=None) -> dict:
     """Device time by kernel over one call of ``fn`` (which must end in a
     synchronize), from torch.profiler, and the device's idle share of the
-    call's wall time."""
+    call's wall time; with ``classify`` (kernel name -> category) also the
+    device ms of each category."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,16 +607,25 @@ def profile_call(fn) -> dict:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # a user annotation (the optimizer's "Optimizer.step#Adam.step") spans
+    # kernels that are rows of their own: counting it would count them twice
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if rows else None,
-            "idle_share": 1.0 - busy / wall_ms if rows else None,
-            "device_kernels": len(rows),
-            "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:12]]}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy if rows else None,
+           "idle_share": 1.0 - busy / wall_ms if rows else None,
+           "device_kernels": len(rows),
+           "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:12]]}
+    if classify is not None:
+        split = {}
+        for k, ms, _ in rows:
+            split[classify(k)] = split.get(classify(k), 0.0) + ms
+        out["split_ms"] = split
+    return out
 
 
 def phase_serve(params, dev) -> dict:
@@ -903,6 +962,421 @@ def phase_timing(rng, dev) -> dict:
     return {"dot_interaction": dot, "mlp_fwd": mlp, "mlp_bwd": bwd, **res}
 
 
+# -- SASRec -------------------------------------------------------------------
+def phase_flash_check(rng, dev) -> dict:
+    """flash_check.check on every case; returns the worst abs error of the
+    forward (out) and of the backward (dq, dk, dv) over all cases."""
+    import torch
+
+    import flash_check
+    from recsys_tpu_torch.kernels import dispatch
+
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    shapes = [(SAS_BATCH, SAS_HEADS, SAS_LEN, SAS_DIM // SAS_HEADS),
+              (64, SAS_HEADS, 300, SAS_DIM // SAS_HEADS),
+              (SAS_LONG_CHECK, SAS_HEADS, SAS_LONG, SAS_DIM // SAS_HEADS),
+              (128, 1, 50, SAS_DIM)]  # the cli sasrec shape
+    for (b, h, s, d), causal, kind in itertools.product(shapes, (False, True),
+                                                       flash_check.MASKS):
+        q, k, v, do, mask = flash_check.inputs(rng, b, h, s, d, kind, dev)
+        res = flash_check.check(q, k, v, do, mask, causal, dispatch.flash_attention_fwd,
+                                dispatch.flash_attention_bwd)
+        case = f"flash b={b} h={h} s={s} d={d} causal={causal} mask={kind}"
+        emit({"phase": "check", "case": case, **res,
+              "limits": flash_check.TOLS})
+        if not res["ok"]:
+            raise AssertionError(f"{case}: kernels disagree with their plain versions, "
+                                 f"or a limit does not reject a wrong result: {res}")
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], res["errors"]["out"])
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           *(res["errors"][n] for n in ("dq", "dk", "dv")))
+        del q, k, v, do, mask
+    torch.cuda.synchronize()
+    return worst
+
+
+def sasrec_jax_params(rng, max_len) -> dict:
+    """SASRec weights in the JAX package's layout (recsys_tpu/models/match/
+    sasrec.py): item table and positions as its initialisers draw them, the
+    projections and FFN scaled by 1/sqrt(D), layer norms near 1 and 0."""
+    d = SAS_DIM
+
+    def normal(*shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    params = {"item_table": normal(SAS_ITEMS, d, scale=0.05),
+              "pos_emb": {"pos": normal(max_len, d, scale=0.02)}}
+    for i in range(SAS_BLOCKS):
+        params[f"blocks_{i}"] = {
+            "MultiHeadAttention_0": {w: {"kernel": normal(d, d, scale=d ** -0.5)}
+                                     for w in ("wq", "wk", "wv")},
+            **{f"LayerNorm_{j}": {"scale": 1 + normal(d, scale=0.1),
+                                  "bias": normal(d, scale=0.1)} for j in (0, 1)},
+            **{f"Dense_{j}": {"kernel": normal(d, d, scale=d ** -0.5),
+                              "bias": normal(d, scale=0.01)} for j in (0, 1)},
+        }
+    return params
+
+
+def sasrec_model(params, max_len, dev):
+    from recsys_tpu_torch.convert import sasrec_params_from_jax
+    from recsys_tpu_torch.models.match.sasrec import SASRec
+
+    model = SASRec(num_items=SAS_ITEMS, embed_dim=SAS_DIM, num_blocks=SAS_BLOCKS,
+                   num_heads=SAS_HEADS, max_len=max_len, dropout_rate=0.0, device=dev)
+    model.load_state_dict(sasrec_params_from_jax(params, model))
+    return model
+
+
+def prefix_data(rng, n, max_len, negs) -> dict:
+    """Front-padded histories of 1..max_len items, one positive and
+    ``negs`` negatives per row."""
+    lens = rng.integers(1, max_len + 1, n)
+    hist = rng.integers(1, SAS_ITEMS, (n, max_len)).astype(np.int32)
+    hist[np.arange(max_len)[None, :] < max_len - lens[:, None]] = 0
+    return {"hist": hist, "pos": rng.integers(1, SAS_ITEMS, n).astype(np.int32),
+            "neg": rng.integers(1, SAS_ITEMS, (n, negs)).astype(np.int32)}
+
+
+def all_position_data(rng, n, max_len) -> dict:
+    """The published scheme's rows: position t of a front-padded history
+    predicts the next item tgt[t] against one negative; pad positions 0."""
+    seq = rng.integers(1, SAS_ITEMS, (n, max_len + 1)).astype(np.int32)
+    pad = np.arange(max_len)[None, :] < max_len - rng.integers(1, max_len + 1, n)[:, None]
+    hist, tgt = seq[:, :-1].copy(), seq[:, 1:].copy()
+    neg = rng.integers(1, SAS_ITEMS, (n, max_len)).astype(np.int32)
+    for a in (hist, tgt, neg):
+        a[pad] = 0
+    return {"hist": hist, "pos": tgt, "neg": neg}
+
+
+def sasrec_loss(out, batch):
+    from recsys_tpu_torch.train.losses import pairwise_bce
+
+    return pairwise_bce(out["pos_logits"], out["neg_logits"], mask=out.get("mask"))
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route ``dispatch.sdpa`` through the plain versions on the card, for
+    the comparisons: the same model, the same autograd function."""
+    from recsys_tpu_torch.kernels import attention as attn
+    from recsys_tpu_torch.kernels import dispatch
+
+    saved = dispatch.flash_attention_fwd, dispatch.flash_attention_bwd
+    dispatch.flash_attention_fwd = attn.flash_attention_fwd
+    dispatch.flash_attention_bwd = attn.flash_attention_bwd
+    try:
+        yield
+    finally:
+        dispatch.flash_attention_fwd, dispatch.flash_attention_bwd = saved
+
+
+def step_category(name: str) -> str:
+    """The category of a device kernel in a SASRec step's profile."""
+    low = name.lower()
+    for cat, keys in (("flash forward", ("flash_fwd",)),
+                      ("flash backward", ("flash_bwd",)),
+                      ("GEMMs (projections, FFN, logits)",
+                       ("gemm", "gemv", "xmma", "cutlass", "splitk", "kernel2")),
+                      ("gathers and item-table scatter",
+                       ("index", "embedding", "gather", "scatter", "sort", "radix", "unique")),
+                      ("optimizer", ("adam", "multi_tensor")),
+                      ("loss", ("log_sigmoid", "logsigmoid", "softplus")),
+                      ("host-device copies", ("memcpy",))):
+        if any(k in low for k in keys):
+            return cat
+    return "other (layer norm, elementwise, reductions)"
+
+
+def phase_sasrec_serve(rng, dev) -> dict:
+    """Trainer.predict at the bench widths over 256-row requests and a
+    ragged tail, then HR@10 and NDCG@10."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train.loop import Trainer
+    from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k
+
+    model = sasrec_model(sasrec_jax_params(rng, SAS_LEN), SAS_LEN, dev)
+    n = SAS_REQUESTS * SAS_BATCH + SAS_TAIL
+    data = prefix_data(rng, n, SAS_LEN, SAS_NEGS)
+    requests = -(-n // SAS_BATCH)
+    trainer = Trainer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    out = trainer.predict(data, batch_size=SAS_BATCH)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    expected = {**dict.fromkeys(launches, 0), "flash_attention_fwd": SAS_BLOCKS * requests}
+    if launches != expected:
+        raise AssertionError(f"sasrec serve: launches {launches}, expected {expected}")
+    if out["pos_logits"].shape != (n,) or out["neg_logits"].shape != (n, SAS_NEGS) or \
+            not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError("sasrec serve: logits of the wrong shape or not finite")
+    hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
+
+    errs = []
+    with torch.inference_mode(), plain_attention():
+        for lo, hi in ((0, SAS_BATCH), (SAS_REQUESTS * SAS_BATCH, n)):
+            want = model({k: torch.from_numpy(v[lo:hi]).to(dev) for k, v in data.items()})
+            for key in ("pos_logits", "neg_logits"):
+                errs.append(check_close(f"sasrec serve {key} rows {lo}..{hi}",
+                                        torch.from_numpy(out[key][lo:hi]).to(dev),
+                                        want[key], SAS_LOGIT_TOL))
+
+    one = {k: v[:SAS_BATCH] for k, v in data.items()}
+    lat = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        trainer.predict(one, batch_size=SAS_BATCH)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    trainer.predict(data, batch_size=SAS_BATCH)
+    wall = time.perf_counter() - t0
+    emit({"phase": "profile", "config": "sasrec serve",
+          **profile_call(lambda: trainer.predict(one, batch_size=SAS_BATCH), step_category)})
+    res = {"phase": "sasrec serve", "rows": n, "requests": requests, "max_len": SAS_LEN,
+           "negatives": SAS_NEGS, "HR@10": hr, "NDCG@10": ndcg, "launches": launches,
+           "expected_launches": expected,
+           "max_abs_err": max(e["max_abs_err"] for e in errs),
+           "request_ms_median": float(np.median(lat)), "request_ms_min": float(np.min(lat)),
+           "examples_per_s": n / wall,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(f"sasrec serve: HR@10={hr:.4f} NDCG@10={ndcg:.4f}", flush=True)
+    emit(res)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_sasrec_step(name, trainer, ref, loss_k, loss_p) -> dict:
+    """One SASRec step through the kernels against the same step through the
+    plain versions, from copies of one state (all dense f32 Adam)."""
+    import torch
+
+    out = {"loss": float(loss_k), "plain_loss": float(loss_p)}
+    ok = bool(torch.isclose(loss_k.double(), loss_p.double(), **SAS_LOGIT_TOL))
+    got_sd, want_sd = trainer.model.state_dict(), ref.model.state_dict()
+    shares = {k: share_off(got_sd[k], want_sd[k], LR / 10) for k in want_sd}
+    out["worst_param_share"] = max(shares.values())
+    ok &= out["worst_param_share"] <= SAS_P_SHARE
+    moments, short = {}, {}
+    b1 = trainer.optimizer.param_groups[0]["betas"][0]
+    for (k, pk), pp in zip(trainer.model.named_parameters(), ref.model.parameters()):
+        mk = trainer.optimizer.state[pk]["exp_avg"]
+        mp = ref.optimizer.state[pp]["exp_avg"]
+        norm = float(mp.norm())
+        moments[k] = float((mk - mp).norm()) / norm
+        short[k] = float((mk - (1 - b1) * 0.2 * pk.grad - mp).norm()) / norm
+    out["worst_moment_rel_err"] = max(moments.values())
+    out["grad_x0.8_least_moment_rel_err"] = min(short.values())
+    ok &= out["worst_moment_rel_err"] <= SAS_MOMENT_RTOL < out["grad_x0.8_least_moment_rel_err"]
+    out["ok"] = ok
+    emit({"phase": "check", "case": f"sasrec train step {name} kernels vs plain", **out,
+          "loss_tol": SAS_LOGIT_TOL, "param_share_limit": SAS_P_SHARE,
+          "param_thresh": LR / 10, "moment_rel_err_limit": SAS_MOMENT_RTOL})
+    if not ok:
+        raise AssertionError(f"sasrec train step {name}: kernels disagree with the plain "
+                             f"versions: {out}, params {shares}, moments {moments}, "
+                             f"moments of a short gradient {short}")
+    return out
+
+
+def phase_sasrec_train(rng, dev) -> dict:
+    """Trainer.fit at the bench widths: the prefix scheme with one negative
+    (bench.py) at max_len 512 and 2048, the all-position scheme (cli sasrec)
+    at 512."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train.loop import Trainer
+
+    results = {}
+    for scheme, max_len, steps, check_rows in (("prefix", SAS_LEN, SAS_STEPS, SAS_BATCH),
+                                               ("all-position", SAS_LEN, SAS_STEPS, SAS_BATCH),
+                                               ("prefix", SAS_LONG, SAS_LONG_STEPS,
+                                                SAS_LONG_CHECK)):
+        name = f"{scheme} max_len={max_len}"
+        make = (lambda n: prefix_data(rng, n, max_len, 1)) if scheme == "prefix" else \
+            (lambda n: all_position_data(rng, n, max_len))
+        n = steps * SAS_BATCH
+        train, extra = make(n), make(SAS_BATCH)
+        model = sasrec_model(sasrec_jax_params(rng, max_len), max_len, dev)
+        trainer = Trainer(model, loss_fn=sasrec_loss, learning_rate=LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        hist = trainer.fit(train, batch_size=SAS_BATCH, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(dispatch.LAUNCHES)
+        expected = {**dict.fromkeys(launches, 0),
+                    "flash_attention_fwd": SAS_BLOCKS * steps,
+                    "flash_attention_bwd": SAS_BLOCKS * steps}
+        if launches != expected:
+            raise AssertionError(f"sasrec train {name}: launches {launches}, "
+                                 f"expected {expected}")
+        if not np.isfinite(hist["loss"]).all():
+            raise AssertionError(f"sasrec train {name}: loss {hist['loss']} not finite")
+        peak = torch.cuda.max_memory_allocated()
+
+        small = {k: v[:check_rows] for k, v in extra.items()}
+        ref = copy.deepcopy(trainer)
+        loss_k = trainer.train_step(small)
+        with plain_attention():
+            loss_p = ref.train_step(small)
+        cmp = compare_sasrec_step(name, trainer, ref, loss_k, loss_p)
+        del ref
+
+        steps_ms = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(extra)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "profile", "config": f"sasrec train {name}",
+              **profile_call(lambda: (trainer.train_step(extra), torch.cuda.synchronize()),
+                             step_category)})
+        res = {"phase": "sasrec train", "config": name, "steps": steps, "rows": n,
+               "epoch_loss": hist["loss"][0], "launches": launches,
+               "expected_launches": expected, "step_check": cmp,
+               "step_check_rows": check_rows,
+               "step_ms_median": float(np.median(steps_ms)),
+               "step_ms_min": float(np.min(steps_ms)),
+               "step_examples_per_s": SAS_BATCH / (float(np.median(steps_ms)) / 1e3),
+               "fit_seconds": fit_s, "fit_examples_per_s": n / fit_s,
+               "max_memory_allocated_bytes": peak}
+        emit(res)
+        results[name] = res
+        del model, trainer
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_sasrec_cli(dev) -> dict:
+    """cli sasrec's flow on the kernels: synthetic ratings, the all-position
+    dataset at max_len 50, fit for 2 epochs, predict the test rows, HR@10."""
+    import torch
+
+    from recsys_tpu_torch.data.movielens import build_sasrec_dataset, synthetic_ratings
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.match.sasrec import SASRec
+    from recsys_tpu_torch.train.loop import Trainer
+    from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k
+
+    ni, train, _, test = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
+                                              maxlen=50, all_positions=True)
+    torch.manual_seed(0)
+    model = SASRec(num_items=ni, embed_dim=64, max_len=50, device=dev)
+    trainer = Trainer(model, loss_fn=sasrec_loss, learning_rate=LR)
+    dispatch.reset_launches()
+    hist = trainer.fit(train, batch_size=128, epochs=2, verbose=False)
+    out = trainer.predict(test)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    steps = 2 * (len(train["hist"]) // 128)
+    expected = {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * steps + 2,
+                "flash_attention_bwd": 2 * steps}
+    if launches != expected or not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"sasrec cli: launches {launches}, expected {expected}, "
+                             f"loss {hist['loss']}")
+    hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
+    print(f"sasrec cli: test HR@10={hr:.4f} NDCG@10={ndcg:.4f}", flush=True)
+    res = {"phase": "sasrec cli", "num_items": ni, "train_rows": len(train["hist"]),
+           "test_rows": len(test["hist"]), "loss": hist["loss"], "HR@10": hr,
+           "NDCG@10": ndcg, "launches": launches, "expected_launches": expected}
+    emit(res)
+    return res
+
+
+def attention_work(b, h, s, d, passes, tensors) -> tuple[float, float]:
+    """(bytes, operations) of causal attention with all keys kept: the
+    ``tensors`` (B, H, S, D) f32 tensors read or written once, lse and the
+    mask; ``passes`` products of 2·D flops over the S(S+1)/2 pairs."""
+    pairs = s * (s + 1) / 2
+    return (4 * (tensors * b * h * s * d + b * h * s + b * s),
+            passes * 2 * d * pairs * b * h)
+
+
+def phase_flash_timing(rng, dev) -> dict:
+    """Kernel, plain and torch SDPA ms of the flash forward and backward,
+    causal with every key kept (bench.py's full histories), at S = 512
+    (B = 256) and S = 2048 (B = 32, where the plain version fits)."""
+    import torch
+    import torch.nn.functional as F
+
+    from recsys_tpu_torch.kernels import attention as attn
+    from recsys_tpu_torch.kernels import dispatch
+
+    res = {}
+    d, h = SAS_DIM // SAS_HEADS, SAS_HEADS
+    for s, b in ((SAS_LEN, SAS_BATCH), (SAS_LONG, 32)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32))
+                       .to(dev) for _ in range(4))
+        mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        out, lse = dispatch.flash_attention_fwd(q, k, v, mask, True)
+        keep = attn.keep_mask(mask, s, s, True, dev)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+
+        def lib_fwd_bwd():
+            for t in (qg, kg, vg):
+                t.grad = None
+            F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep).backward(do)
+
+        t = {
+            "fwd_ms": cuda_ms(lambda: dispatch.flash_attention_fwd(q, k, v, mask, True), 20, 3),
+            "bwd_ms": cuda_ms(lambda: dispatch.flash_attention_bwd(
+                q, k, v, mask, out, lse, do, True), 10, 2),
+            "plain_fwd_ms": cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, mask, True), 5, 2),
+            "plain_bwd_ms": cuda_ms(lambda: attn.flash_attention_bwd(
+                q, k, v, mask, out, lse, do, True), 5, 2),
+            "library_fwd_ms": cuda_ms(lib_fwd, 10, 2),
+            "library_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, 5, 2),
+        }
+        t["fwd_plus_bwd_ms"] = t["fwd_ms"] + t["bwd_ms"]
+        prof = profile_call(lambda: (lib_fwd(), torch.cuda.synchronize()))
+        t["library_kernels"] = [r["name"] for r in prof["top"][:3]]
+        by, op = attention_work(b, h, s, d, 2, 4)
+        t["fwd_bound_ms"], t["fwd_bound_by"] = bound(by, op, F32_FLOPS)
+        by, op = attention_work(b, h, s, d, 5, 8)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = bound(by, op, F32_FLOPS)
+        if s == SAS_LONG:  # the training batch, through the kernels only
+            qb, kb, vb, dob = (torch.from_numpy(rng.standard_normal(
+                (SAS_BATCH, h, s, d), dtype=np.float32)).to(dev) for _ in range(4))
+            mb = torch.ones((SAS_BATCH, s), dtype=torch.int32, device=dev)
+            ob, lb = dispatch.flash_attention_fwd(qb, kb, vb, mb, True)
+            t[f"fwd_ms_b{SAS_BATCH}"] = cuda_ms(
+                lambda: dispatch.flash_attention_fwd(qb, kb, vb, mb, True), 5, 1)
+            t[f"bwd_ms_b{SAS_BATCH}"] = cuda_ms(
+                lambda: dispatch.flash_attention_bwd(qb, kb, vb, mb, ob, lb, dob, True), 3, 1)
+            del qb, kb, vb, dob, ob
+        emit({"phase": "timing", "kernel": "flash_attention", "shape": [b, h, s, d],
+              "causal": True, "dtype": "f32", **t})
+        res[s] = t
+        del q, k, v, do, qg, kg, vg, out, keep
+        torch.cuda.empty_cache()
+    t = res[SAS_LEN]
+    return {"flash_attention_fwd": {"ms": t["fwd_ms"], "plain_ms": t["plain_fwd_ms"],
+                                    "bound_ms": t["fwd_bound_ms"],
+                                    "bound_by": t["fwd_bound_by"],
+                                    "library_ms": t["library_fwd_ms"]},
+            "flash_attention_bwd": {"ms": t["bwd_ms"], "plain_ms": t["plain_bwd_ms"],
+                                    "bound_ms": t["bwd_bound_ms"],
+                                    "bound_by": t["bwd_bound_by"],
+                                    "library_ms": t["library_fwd_bwd_ms"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -931,6 +1405,11 @@ def main() -> int:
     serve = phase_serve(params, dev)
     train = phase_train(params, dev)
     timing = phase_timing(rng, dev)
+    worst.update(phase_flash_check(rng, dev))
+    sas_serve = phase_sasrec_serve(rng, dev)
+    sas_train = phase_sasrec_train(rng, dev)
+    sas_cli = phase_sasrec_cli(dev)
+    timing.update(phase_flash_timing(rng, dev))
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -942,9 +1421,13 @@ def main() -> int:
                            "recsys_tpu/kernels/pallas/embedding_update_tpu.py:109"),
         "embedding_rowwise_adagrad": (csrc + "embedding_update.cu",
                                       "recsys_tpu/kernels/pallas/embedding_update_tpu.py:267"),
+        "flash_attention_fwd": (csrc + "flash_attention_fwd.cu",
+                                "recsys_tpu/kernels/pallas/attention_tpu.py:165"),
+        "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
+                                "recsys_tpu/kernels/pallas/attention_tpu.py:350"),
     }
     kernels = []
-    runs = [*serve.values(), *train.values()]
+    runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

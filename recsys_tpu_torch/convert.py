@@ -1,9 +1,10 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
-``params`` is the flax ``params`` tree of the JAX DLRM as nested dicts of
-numpy arrays (``np.asarray`` of each leaf; bf16 leaves may carry numpy's
-``bfloat16`` extension dtype).  Nothing here imports JAX: the tree is plain
-data, and a seeded numpy tree in the same layout works the same way.
+``params`` is the flax ``params`` tree of a JAX model (DLRM, SASRec) as
+nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
+carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
+the tree is plain data, and a seeded numpy tree in the same layout works
+the same way.
 """
 from __future__ import annotations
 
@@ -36,6 +37,15 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _dense(tree: dict) -> dict:
+    """flax Dense params -> torch Linear's: kernel (in, out) -> weight (out,
+    in), and the bias where there is one."""
+    out = {"weight": _tensor(tree["kernel"]).t().contiguous()}
+    if "bias" in tree:
+        out["bias"] = _tensor(tree["bias"])
+    return out
+
+
 def _tower(prefix: str, tree: dict, module) -> dict:
     out = {}
     if isinstance(module, FusedMLP):
@@ -44,10 +54,7 @@ def _tower(prefix: str, tree: dict, module) -> dict:
             out[f"{prefix}.bias_{i}"] = _tensor(tree[f"bias_{i}"]).reshape(1, -1)
         return out
     for i in range(len(module.layers)):
-        dense = tree[f"Dense_{i}"]
-        # flax Dense.kernel is (in, out); torch Linear.weight is (out, in)
-        out[f"{prefix}.layers.{i}.weight"] = _tensor(dense["kernel"]).t().contiguous()
-        out[f"{prefix}.layers.{i}.bias"] = _tensor(dense["bias"])
+        out.update({f"{prefix}.layers.{i}.{k}": v for k, v in _dense(tree[f"Dense_{i}"]).items()})
     return out
 
 
@@ -97,3 +104,36 @@ def embedding_state_from_jax(emb_state: dict, schema: FeatureSchema, model) -> d
                                 else np.asarray(a).reshape(-1)[:rows])
                      for k, a in emb_state[name].items()}
     return out
+
+
+def attention_from_jax(tree: dict) -> dict:
+    """flax ``MultiHeadAttention`` params (``wq``, ``wk``, ``wv`` without
+    bias; ``wo`` and ``wr`` where the options made them) -> the port
+    module's state dict."""
+    return {f"{name}.{k}": v for name in ("wq", "wk", "wv", "wo", "wr") if name in tree
+            for k, v in _dense(tree[name]).items()}
+
+
+def transformer_block_from_jax(tree: dict) -> dict:
+    """flax ``TransformerBlock`` params (``MultiHeadAttention_0``,
+    ``LayerNorm_{0,1}/{scale,bias}``, the FFN's ``Dense_{0,1}``) -> the port
+    block's state dict."""
+    state = {f"attn.{k}": v for k, v in attention_from_jax(tree["MultiHeadAttention_0"]).items()}
+    for j in (0, 1):
+        ln = tree[f"LayerNorm_{j}"]
+        state[f"ln{j}.weight"] = _tensor(ln["scale"])
+        state[f"ln{j}.bias"] = _tensor(ln["bias"])
+        state.update({f"ffn{j}.{k}": v for k, v in _dense(tree[f"Dense_{j}"]).items()})
+    return state
+
+
+def sasrec_params_from_jax(params: dict, model) -> dict:
+    """JAX SASRec params -> the port SASRec's state dict: ``item_table``
+    (V, D) (logical, not row-packed), ``pos_emb/pos`` (max_len, D) and one
+    ``blocks_i`` tree per block."""
+    state = {"item_table": _tensor(params["item_table"]),
+             "pos_emb.pos": _tensor(params["pos_emb"]["pos"])}
+    for i in range(len(model.blocks)):
+        state.update({f"blocks.{i}.{k}": v
+                      for k, v in transformer_block_from_jax(params[f"blocks_{i}"]).items()})
+    return state

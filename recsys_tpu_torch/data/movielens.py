@@ -1,0 +1,115 @@
+"""MovieLens-style sequence data for SASRec (the port's copy of
+``recsys_tpu/data/movielens.py::synthetic_ratings`` and
+``build_sasrec_dataset``), in numpy only: ratings are a dict of columns
+(``user_id``, ``item_id``, ``rating``, ``timestamp``) instead of a pandas
+DataFrame.  Both functions draw from their generator in the JAX package's
+order, so the same seed gives the same arrays bit for bit.  The JAX
+package's native C++ sequence builder is not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_ratings(num_users: int = 200, num_items: int = 100,
+                      events_per_user: tuple = (5, 30), seed: int = 0) -> dict:
+    """Synthetic ratings with cluster structure: users prefer items of their
+    own hidden cluster.  Returns int64 columns, one row per event."""
+    rng = np.random.default_rng(seed)
+    user_cluster = rng.integers(0, 4, num_users)
+    item_cluster = rng.integers(0, 4, num_items)
+    rows = []
+    t = 0
+    for u in range(num_users):
+        n = int(rng.integers(*events_per_user))
+        liked = np.flatnonzero(item_cluster == user_cluster[u])
+        for _ in range(n):
+            if len(liked) > 0 and rng.random() < 0.7:
+                i = int(rng.choice(liked))
+                r = int(rng.integers(3, 6))
+            else:
+                i = int(rng.integers(0, num_items))
+                r = int(rng.integers(1, 6))
+            rows.append((u + 1, i + 1, r, t))
+            t += 1
+    cols = np.asarray(rows, np.int64).reshape(-1, 4)
+    return {name: cols[:, j].copy()
+            for j, name in enumerate(("user_id", "item_id", "rating", "timestamp"))}
+
+
+def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20,
+                         min_item_count: int = 5, seed: int = 2020,
+                         all_positions: bool = False):
+    """Returns (num_items, train, val, test), each split a dict of int32
+    ``hist`` (N, maxlen), ``pos`` and ``neg``.
+
+    Items seen fewer than ``min_item_count`` times are dropped and the rest
+    remapped to 1..N in id order (0 = pad).  Each user's events, in time
+    order, give a front-padded history.  Training rows are the exploded
+    prefixes (pos (N,), one sampled negative each) or, with
+    ``all_positions``, one row per user whose position t predicts the next
+    item (pos and neg (N, maxlen)).  Validation targets the second-to-last
+    item, test the last, each against ``test_neg_num`` sampled negatives."""
+    rng = np.random.default_rng(seed)
+    user = np.asarray(ratings["user_id"])
+    item = np.asarray(ratings["item_id"])
+    ts = np.asarray(ratings["timestamp"])
+    vals, counts = np.unique(item, return_counts=True)
+    item_ids = vals[counts >= min_item_count]  # sorted
+    keep = np.isin(item, item_ids)
+    user, item, ts = user[keep], item[keep], ts[keep]
+    iid = np.searchsorted(item_ids, item) + 1  # 0 is pad
+    num_items = len(item_ids) + 1
+
+    order = np.lexsort((ts, user))  # by user, then time; stable
+    user, iid = user[order], iid[order]
+    starts = np.flatnonzero(np.r_[True, user[1:] != user[:-1]])
+    seqs = np.split(iid, starts[1:]) if len(iid) else []
+
+    def sample_neg(exclude: set, n: int) -> list[int]:
+        out = []
+        while len(out) < n:
+            cand = int(rng.integers(1, num_items))
+            if cand not in exclude:
+                out.append(cand)
+        return out
+
+    def pad(seq: list[int]) -> np.ndarray:
+        seq = seq[-maxlen:]
+        return np.asarray([0] * (maxlen - len(seq)) + seq, np.int32)
+
+    train_h, train_p, train_n = [], [], []
+    val_h, val_p, val_n = [], [], []
+    test_h, test_p, test_n = [], [], []
+    for seq in seqs:
+        seq = seq.tolist()
+        if len(seq) < 3:
+            continue
+        exclude = set(seq)
+        if all_positions:
+            train_seq = seq[:-2]
+            if len(train_seq) >= 2:
+                inp = pad(train_seq[:-1])
+                tgt = pad(train_seq[1:])
+                negs = np.where(tgt > 0, np.asarray(sample_neg(exclude, maxlen), np.int32), 0)
+                train_h.append(inp)
+                train_p.append(tgt)
+                train_n.append(negs)
+        else:
+            for t in range(1, len(seq) - 2):
+                train_h.append(pad(seq[:t]))
+                train_p.append(seq[t])
+                train_n.append(sample_neg(exclude, 1))
+        val_h.append(pad(seq[:-2]))
+        val_p.append(seq[-2])
+        val_n.append(sample_neg(exclude, test_neg_num))
+        test_h.append(pad(seq[:-1]))
+        test_p.append(seq[-1])
+        test_n.append(sample_neg(exclude, test_neg_num))
+
+    def pack(h, p, n):
+        return {"hist": np.stack(h).astype(np.int32), "pos": np.asarray(p, np.int32),
+                "neg": np.asarray(n, np.int32)}
+
+    return (num_items, pack(train_h, train_p, train_n), pack(val_h, val_p, val_n),
+            pack(test_h, test_p, test_n))

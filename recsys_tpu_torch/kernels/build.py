@@ -48,6 +48,16 @@ SIGNATURES = {
         "embedding_rowwise_adagrad_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                                   _I, _I, _I, _F, _F, _F, _P]),
     },
+    "flash_attention_fwd": {
+        "flash_attention_fwd_smem_bytes": (ctypes.c_longlong, [_I]),
+        "flash_attention_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _F, _I, _P]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
+        "flash_attention_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                            _I, _I, _I, _I, _F, _I, _P]),
+    },
 }
 
 

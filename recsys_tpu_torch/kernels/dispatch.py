@@ -6,10 +6,11 @@ failed launch to the plain path.
 integers, incremented only where a kernel is launched), so a run can show
 that its main path went through the kernels.
 
-``DotInteraction`` and ``FusedMLPFunction`` are the autograd functions the
-model layers call: their forwards are the forward kernels; the dot
-interaction's backward is torch ops (the JAX package leaves it to XLA), the
-fused MLP's backward is the ``mlp_bwd`` kernel.
+``DotInteraction``, ``FusedMLPFunction`` and ``FlashAttention`` are the
+autograd functions the model layers call: their forwards are the forward
+kernels; the dot interaction's backward is torch ops (the JAX package
+leaves it to XLA), the fused MLP's backward is the ``mlp_bwd`` kernel and
+the attention's the ``flash_attention_bwd`` kernels.
 """
 from __future__ import annotations
 
@@ -19,13 +20,15 @@ from typing import Sequence
 
 import torch
 
+from recsys_tpu_torch.kernels import attention as attn_ref
 from recsys_tpu_torch.kernels import build
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
 from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.kernels import mlp as mlp_ref
 
 LAUNCHES = {"dot_interaction": 0, "mlp_fwd": 0, "mlp_bwd": 0,
-            "embedding_adam": 0, "embedding_rowwise_adagrad": 0}
+            "embedding_adam": 0, "embedding_rowwise_adagrad": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -265,6 +268,106 @@ def fused_embedding_rowwise_adagrad(p, acc, cot_sorted, ids2d, cptr, *, block: i
     LAUNCHES["embedding_rowwise_adagrad"] += 1
 
 
+def _check_attention(name, q, k, v, mask, extra=()) -> None:
+    """Shapes the attention functions take: q (B, H, Sq, D), k and v
+    (B, H, Sk, D), mask (B, Sk) or None, and ``extra`` (tensor, shape)
+    pairs."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: expected q (B, H, Sq, D), k and v (B, H, Sk, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if mask is not None and tuple(mask.shape) != (q.shape[0], k.shape[2]):
+        raise ValueError(f"{name}: mask must be (B, Sk) = {(q.shape[0], k.shape[2])}, "
+                         f"got {tuple(mask.shape)}")
+    for t, shape in extra:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not all(t.is_floating_point() for t in (q, k, v, *(t for t, _ in extra))):
+        raise TypeError(f"{name}: q, k and v must be floating point")
+
+
+def _attention_kernel_args(name, tensors, mask, smem_bytes):
+    """Checks of the CUDA path (``smem_bytes(D)`` is 0 for a head dim the
+    kernel does not take); returns the kernel's int32 mask or None."""
+    q = tensors[0]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: the kernel computes f32 tensors only")
+    d = q.shape[-1]
+    if smem_bytes(d) == 0:
+        raise ValueError(f"{name}: the kernel takes a head dim that is a multiple of 8 "
+                         f"in [8, 128], got {d}")
+    _check_cuda(name, tensors, q.device)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    if mask is None:
+        return None
+    if mask.device != q.device:
+        raise ValueError(f"{name}: mask on {mask.device}, expected {q.device}")
+    return mask.to(torch.int32).contiguous()
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: torch.Tensor | None = None, causal: bool = False):
+    """Masked attention with online softmax: q (B, H, Sq, D), k/v (B, H, Sk,
+    D), mask (B, Sk) key padding (nonzero = attend) or None -> (out in q's
+    dtype, lse (B, H, Sq) f32); see ``kernels/attention.py`` for the
+    semantics.  The kernel takes f32 and a head dim that is a multiple of 8
+    up to 128."""
+    _check_attention("flash_attention_fwd", q, k, v, mask)
+    if q.device.type == "cpu":
+        return attn_ref.flash_attention_fwd(q, k, v, mask, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
+    lib = build.libraries()["flash_attention_fwd"]
+    mask_i = _attention_kernel_args("flash_attention_fwd", [q, k, v], mask,
+                                    lib.flash_attention_fwd_smem_bytes)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0 or sk == 0:  # no key to attend: the masked-row result
+        return out.zero_(), lse.fill_(attn_ref.NEG_INF)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_i is None else mask_i.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b * h, h, sq, sk, d, attn_ref.softmax_scale(d), int(causal), _stream(q))
+    build.check(rc, "flash_attention_fwd")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, mask, out, lse, do, causal: bool = False):
+    """(dq, dk, dv) of :func:`flash_attention_fwd` for the output cotangent
+    ``do``, from its residuals ``out`` and ``lse``.  delta = rowsum(do·out)
+    is computed here with torch ops, as the JAX package computes it outside
+    its kernels; the launch runs the dq kernel and the dk/dv kernel."""
+    b, h, sq, d = q.shape
+    _check_attention("flash_attention_bwd", q, k, v, mask,
+                     [(out, q.shape), (do, q.shape), (lse, (b, h, sq))])
+    if q.device.type == "cpu":
+        return attn_ref.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    lib = build.libraries()["flash_attention_bwd"]
+    mask_i = _attention_kernel_args("flash_attention_bwd", [q, k, v, out, lse, do], mask,
+                                    lib.flash_attention_bwd_smem_bytes)
+    sk = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = (do * out).sum(-1)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_i is None else mask_i.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, sk,
+            d, attn_ref.softmax_scale(d), int(causal), _stream(q))
+    build.check(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 # -- autograd ---------------------------------------------------------------
 @functools.lru_cache(maxsize=16)
 def _dot_sel(f: int, self_interaction: bool, device: torch.device) -> torch.Tensor:
@@ -319,3 +422,35 @@ class FusedMLPFunction(torch.autograd.Function):
         dx, dws, dbs = fused_mlp_backward(x, g.contiguous(), params[:n], params[n:],
                                           ctx.mm_bf16)
         return (dx, None, *dws, *dbs)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is ``flash_attention_fwd``,
+    which keeps its output and lse, and the backward ``flash_attention_bwd``
+    (kernels on a CUDA tensor, plain versions on a CPU tensor).  Called as
+    ``FlashAttention.apply(q, k, v, mask, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: torch.Tensor | None = None, causal: bool = False) -> torch.Tensor:
+    """Fused attention over (B, H, S, D) with a (B, Sk) key-padding mask
+    (nonzero = attend) or None, the counterpart of the JAX package's
+    ``kernels/dispatch.py::sdpa``.  A CUDA tensor takes the flash kernels at
+    every length: the JAX package's switch to its materialised softmax below
+    Sq·Sk = 512² was measured on a TPU (ROADMAP Queue 3).  The semantics
+    are the flash kernel's: a query row with no key to attend gives 0."""
+    return FlashAttention.apply(q, k, v, mask, causal)

@@ -17,6 +17,7 @@ import torch
 
 from recsys_tpu_torch.data.prefetch import prefetch
 from recsys_tpu_torch.kernels import default_device
+from recsys_tpu_torch.ops.attention import Dropout
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
 from recsys_tpu_torch.train import losses as losses_lib
 from recsys_tpu_torch.train import metrics as metrics_lib
@@ -43,7 +44,8 @@ class Trainer:
     no explicit device this raises.
 
     Dense parameters train with ``torch.optim.Adam`` (``AdamW`` when
-    ``weight_decay`` > 0: decoupled decay, as ``optax.adamw``).
+    ``weight_decay`` > 0: decoupled decay, as ``optax.adamw``).  Dropout
+    draws from ``self.generator``, seeded from ``seed`` on ``device``.
     ``embedding_optimizer`` takes the ``StackedEmbedding`` tables off that
     path (the model must be built with ``sparse_embed_grads=True``):
 
@@ -84,6 +86,15 @@ class Trainer:
             np.asarray([f.vocab_size for f in schema.sparse])
             if schema is not None and schema.sparse else None
         )
+        # item-id inputs of a sequence model (SASRec): each must index its
+        # item table; the JAX package's gather clamps, a device gather faults
+        self._item_ids = ({k: model.num_items for k in model.id_keys}
+                          if hasattr(model, "id_keys") else {})
+        # dropout draws from one generator on the device, seeded here
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.generator
         self.embedding, self.plan, self.emb_state, self._prep = None, None, None, None
         if embedding_optimizer is not None:
             taps = [m for m in model.modules()
@@ -132,6 +143,11 @@ class Trainer:
                 if (ids < 0).any() or (ids >= self._vocab).any():
                     raise ValueError(f"sparse ids outside their vocabularies "
                                      f"in rows {s}..{s + valid}")
+            for key, vocab in self._item_ids.items():
+                ids = batch.get(key)
+                if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
+                    raise ValueError(f"{key} ids outside [0, {vocab}) in rows "
+                                     f"{s}..{s + valid}")
             if prep is not None:
                 batch.update(prep(batch["sparse"]))
             yield batch, valid
@@ -220,8 +236,9 @@ class Trainer:
     # -- serving ----------------------------------------------------------
     def predict(self, data: dict, batch_size: int = 4096,
                 consumer: Callable | None = None):
-        """Forward pass over a dataset; returns the stacked outputs as a
-        numpy array with exactly one row per example.
+        """Forward pass over a dataset; returns the stacked outputs with
+        exactly one row per example: a numpy array, or a dict of them when
+        the model returns a dict (as the JAX ``predict`` returns a pytree).
 
         ``consumer(outputs, start)`` -- if given, each batch's host outputs
         (padding rows dropped; ``start`` is the dataset offset) are handed
@@ -230,7 +247,11 @@ class Trainer:
         outs, start = [], 0
         with torch.inference_mode():
             for batch, valid in prefetch(self._batches(data, batch_size)):
-                out = self.model(self._to_device(batch))[:valid].cpu().numpy()
+                out = self.model(self._to_device(batch))
+                if isinstance(out, dict):
+                    out = {k: v[:valid].cpu().numpy() for k, v in out.items()}
+                else:
+                    out = out[:valid].cpu().numpy()
                 if consumer is not None:
                     consumer(out, start)
                 else:
@@ -238,6 +259,8 @@ class Trainer:
                 start += valid
         if consumer is not None:
             return None
+        if isinstance(outs[0], dict):
+            return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
         return np.concatenate(outs, axis=0)
 
     def evaluate_auc(self, data: dict, batch_size: int = 4096,

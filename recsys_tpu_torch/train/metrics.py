@@ -1,4 +1,5 @@
-"""Evaluation metrics: binned AUC and exact AUC, in numpy.
+"""Evaluation metrics: binned AUC, exact AUC and the ranked-candidate
+HR/NDCG@K, in numpy.
 
 The binned AUC is the JAX package's estimator: per-class histograms of
 sigmoid-space scores over fixed bins, then the trapezoidal area over the
@@ -59,3 +60,14 @@ def auc_exact(scores, labels) -> float:
     if n_pos == 0 or n_neg == 0:
         return 0.5
     return float((ranks[labels == 1].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def hit_rate_ndcg_at_k(pos_scores, neg_scores, k: int) -> tuple[float, float]:
+    """Rank each example's positive among its negatives: pos (B,), neg
+    (B, N) -> (HR@k, NDCG@k), computed in f32 as the JAX package does.  The
+    0-based rank counts the negatives scored strictly above the positive."""
+    pos = np.asarray(pos_scores, np.float32)
+    rank = (np.asarray(neg_scores, np.float32) > pos[:, None]).sum(-1)
+    hit = (rank < k).astype(np.float32)
+    ndcg = hit * (np.float32(1.0) / np.log2(rank.astype(np.float32) + np.float32(2.0)))
+    return float(hit.mean()), float(ndcg.mean())
