@@ -57,7 +57,31 @@ checkout.  Phases, one JSON line each:
                 HR@10, on the kernels.
 11. flash timing -- kernel, plain and torch SDPA ms with the bounds, at
                 S = 512 (B = 256) and S = 2048 (B = 32).
-12. kernels  -- one line naming every kernel with its launches and times.
+12. youtube data -- realistic_ratings at the protocol seqret widths (20,000
+                items, users cut to 20,000) and the numpy retrieval dataset
+                at max_len 50.
+13. youtube check -- the pooled-gather and top-k kernels against their plain
+                versions (retrieval_check.py): the pooled gather at B = 1024
+                and 1000, L = 50, D = 32 and 128, f32 and bf16 tables,
+                uniform and Zipf ids, empty histories; the top-k at Q = 8192
+                and 3616 over the catalog, D = 32, k = 1, 10, 16, with
+                duplicated item rows, and at 1024 x 1,000,000 x 64, k = 10;
+                each limit shown to reject a wrong result.
+14. youtube serve -- YoutubeDNN (D = 32, hidden 128-64, mean pooling),
+                weights made from the seed in the JAX layout and converted,
+                served as run_seqret serves it: user_embed over 8192-query
+                blocks, top-10 over the whole catalog, recall@10; launch
+                counts, indices against the plain path, block time, queries/s,
+                peak memory, profile.
+15. youtube train -- Trainer.fit with the logQ-corrected in-batch softmax,
+                batch 1024, Adam, YOUTUBE_STEPS steps from the head of the
+                shuffled train set; launch counts, finite loss, one more step
+                against the plain step, step time, profile; then serve again:
+                recall@10 must beat random.
+16. youtube timing -- kernel, plain and library ms of the pooled gather and
+                the top-k with their bounds, at the serving block and the
+                sweep shape.
+17. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits non-zero; with no card it exits non-zero before any phase.
@@ -167,6 +191,25 @@ SAS_LONG_CHECK = 16     # rows of the 2048 step held against the plain step
 SAS_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 SAS_P_SHARE = 1e-3
 SAS_MOMENT_RTOL = 1e-3
+
+# YoutubeDNN at the protocol seqret widths (recsys_tpu/tools/protocol.py:
+# 244-296, defaults :738-744 and :791-793)
+YOUTUBE_USERS = 20_000   # the protocol's 100,000, cut: data generation stays short
+YOUTUBE_ITEMS = 20_000
+YOUTUBE_DIM = 32
+YOUTUBE_HIDDEN = (128, 64)
+YOUTUBE_MAXLEN = 50
+YOUTUBE_POOLING = "mean"
+YOUTUBE_BLOCK = 8192     # run_seqret's serving block
+YOUTUBE_K = 10
+YOUTUBE_BATCH = 1024
+YOUTUBE_STEPS = 100      # from the head of the shuffled train set
+YOUTUBE_SWEEP = (1024, 1_000_000, 64)  # tools/kernel_sweep.py:98-102
+# The user vectors, kernels against plain versions: unit vectors from a
+# 50-term pooled mean (sums in another order) through three f32 layers.
+# One train step is held as SASRec's (all f32).  The kernels' own limits
+# are retrieval_check.py's.
+YOUTUBE_EMB_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def emit(obj) -> None:
@@ -599,18 +642,26 @@ def profile_call(fn, classify=None) -> dict:
     """Device time by kernel over one call of ``fn`` (which must end in a
     synchronize), from torch.profiler, and the device's idle share of the
     call's wall time; with ``classify`` (kernel name -> category) also the
-    device ms of each category."""
+    device ms of each category.  ``fn`` runs once more before, untraced
+    while the tracer warms up: the first device activities of a window are
+    otherwise lost (a serving call's input copy and first kernel)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        fn()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     # a user annotation (the optimizer's "Optimizer.step#Adam.step") spans
     # kernels that are rows of their own: counting it would count them twice
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in traced[0]
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                    and not getattr(e, "is_user_annotation", False)),
                   key=lambda r: -r[1])
@@ -1153,9 +1204,10 @@ def phase_sasrec_serve(rng, dev) -> dict:
     return res
 
 
-def compare_sasrec_step(name, trainer, ref, loss_k, loss_p) -> dict:
-    """One SASRec step through the kernels against the same step through the
-    plain versions, from copies of one state (all dense f32 Adam)."""
+def compare_sasrec_step(name, trainer, ref, loss_k, loss_p, label="sasrec") -> dict:
+    """One SASRec (or other all-f32) step through the kernels against the
+    same step through the plain versions, from copies of one state (all
+    dense f32 Adam)."""
     import torch
 
     out = {"loss": float(loss_k), "plain_loss": float(loss_p)}
@@ -1176,11 +1228,11 @@ def compare_sasrec_step(name, trainer, ref, loss_k, loss_p) -> dict:
     out["grad_x0.8_least_moment_rel_err"] = min(short.values())
     ok &= out["worst_moment_rel_err"] <= SAS_MOMENT_RTOL < out["grad_x0.8_least_moment_rel_err"]
     out["ok"] = ok
-    emit({"phase": "check", "case": f"sasrec train step {name} kernels vs plain", **out,
+    emit({"phase": "check", "case": f"{label} train step {name} kernels vs plain", **out,
           "loss_tol": SAS_LOGIT_TOL, "param_share_limit": SAS_P_SHARE,
           "param_thresh": LR / 10, "moment_rel_err_limit": SAS_MOMENT_RTOL})
     if not ok:
-        raise AssertionError(f"sasrec train step {name}: kernels disagree with the plain "
+        raise AssertionError(f"{label} train step {name}: kernels disagree with the plain "
                              f"versions: {out}, params {shares}, moments {moments}, "
                              f"moments of a short gradient {short}")
     return out
@@ -1377,6 +1429,351 @@ def phase_flash_timing(rng, dev) -> dict:
                                     "library_ms": t["library_fwd_bwd_ms"]}}
 
 
+# -- YoutubeDNN ---------------------------------------------------------------
+def phase_youtube_data() -> tuple:
+    """The protocol's ratings and the retrieval dataset: (num_items, train,
+    test)."""
+    from recsys_tpu_torch.data.movielens import build_seq_retrieval_dataset
+    from recsys_tpu_torch.data.realistic import realistic_ratings
+
+    t0 = time.perf_counter()
+    ratings = realistic_ratings(num_users=YOUTUBE_USERS, num_items=YOUTUBE_ITEMS, seed=0)
+    t1 = time.perf_counter()
+    ni, train, test = build_seq_retrieval_dataset(ratings, maxlen=YOUTUBE_MAXLEN)
+    emit({"phase": "youtube data", "users": YOUTUBE_USERS, "items": YOUTUBE_ITEMS,
+          "events": len(ratings["user_id"]), "num_items": ni,
+          "train_rows": len(train["item_id"]), "test_rows": len(test["item_id"]),
+          "test_real_positions_share": float((test["hist"] != 0).mean()),
+          "ratings_seconds": t1 - t0, "dataset_seconds": time.perf_counter() - t1})
+    return ni, train, test
+
+
+def phase_youtube_check(rng, dev, num_items) -> dict:
+    """retrieval_check on every case; returns the worst abs error of each
+    kernel at the serving settings (f32 table at D = 32; k = 10)."""
+    import torch
+
+    import retrieval_check as rc
+    from recsys_tpu_torch.kernels import dispatch
+
+    worst = {"pooled_gather": 0.0, "topk_scores": 0.0}
+    for b, d, dtype, skewed in itertools.product((1024, 1000), (YOUTUBE_DIM, 128),
+                                                 (torch.float32, torch.bfloat16), (False, True)):
+        table, rows, mask = rc.pooled_inputs(rng, b, YOUTUBE_MAXLEN, num_items, d, dtype,
+                                             skewed, dev)
+        res = rc.check_pooled(table, rows, mask, dispatch.pooled_gather)
+        case = (f"pooled_gather b={b} L={YOUTUBE_MAXLEN} d={d} {str(dtype)[6:]} "
+                f"{'zipf' if skewed else 'uniform'}")
+        emit({"phase": "check", "case": case, **res, "rtol_of_abs_sum": rc.POOL_RTOL,
+              "atol": rc.POOL_ATOL})
+        if not res["ok"]:
+            raise AssertionError(f"{case}: kernel disagrees with its plain version, or the "
+                                 f"limit does not reject a wrong result: {res}")
+        if d == YOUTUBE_DIM and dtype == torch.float32:
+            worst["pooled_gather"] = max(worst["pooled_gather"], res["max_abs_err"])
+        del table, rows, mask
+    cases = [(nq, num_items, YOUTUBE_DIM, k, True) for nq in (YOUTUBE_BLOCK, 3616)
+             for k in (1, YOUTUBE_K, 16)]
+    cases.append((*YOUTUBE_SWEEP, YOUTUBE_K, False))
+    for nq, n, d, k, unit in cases:
+        q, items, dup = rc.topk_inputs(rng, nq, n, d, dev, normalize=unit)
+        res = rc.check_topk(q, items, k, dispatch.topk_scores_fused, dup)
+        case = f"topk_scores q={nq} n={n} d={d} k={k} {'unit' if unit else 'normal'} vectors"
+        emit({"phase": "check", "case": case, **res, "score_rtol_of_norms": rc.SCORE_RTOL,
+              "duplicated_rows": dup})
+        if not res["ok"]:
+            raise AssertionError(f"{case}: kernel disagrees with its plain version, or the "
+                                 f"limits do not reject a wrong result: {res}")
+        if k == YOUTUBE_K and unit:
+            worst["topk_scores"] = max(worst["topk_scores"], res["max_abs_err"])
+        del q, items
+    torch.cuda.empty_cache()
+    return worst
+
+
+def youtube_jax_params(rng, num_items) -> dict:
+    """YoutubeDNN weights in the JAX package's layout (recsys_tpu/models/
+    match/youtube_dnn.py): the history table row-packed as StackedEmbedding
+    keeps it, uniform(-0.05, 0.05); the item table normal(0.05); the user
+    tower's Dense_i kernels (in, out) scaled by 1/sqrt(in)."""
+    from recsys_tpu_torch.convert import _pad8, pack_factor
+
+    p = pack_factor(YOUTUBE_DIM, num_items)
+    ws, bs = mlp_weights(rng, [YOUTUBE_DIM, *YOUTUBE_HIDDEN, YOUTUBE_DIM])
+    return {"user_table": {"table_0": rng.uniform(
+                -0.05, 0.05, (_pad8(-(-num_items // p)), p * YOUTUBE_DIM)).astype(np.float32)},
+            "item_table": rng.standard_normal((num_items, YOUTUBE_DIM), dtype=np.float32)
+            * np.float32(0.05),
+            "user_mlp": {f"Dense_{j}": {"kernel": w, "bias": b}
+                         for j, (w, b) in enumerate(zip(ws, bs))}}
+
+
+def youtube_model(params, num_items, dev):
+    from recsys_tpu_torch.convert import youtube_dnn_params_from_jax
+    from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
+    from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+
+    schema = FeatureSchema(varlen=[VarLenSparseFeature("hist_item", num_items, YOUTUBE_DIM,
+                                                       max_len=YOUTUBE_MAXLEN)])
+    model = YoutubeDNN(schema, num_items=num_items, embed_dim=YOUTUBE_DIM,
+                       hidden_units=YOUTUBE_HIDDEN, pooling=YOUTUBE_POOLING, device=dev)
+    model.load_state_dict(youtube_dnn_params_from_jax(params, model))
+    return model
+
+
+@contextlib.contextmanager
+def plain_retrieval():
+    """Route the pooled gather and the top-k through their plain versions on
+    the card, for the comparisons: the same model, the same calls."""
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import embedding as emb_ref
+    from recsys_tpu_torch.kernels import topk as topk_ref
+
+    saved = dispatch.pooled_gather, dispatch.topk_scores_fused
+    dispatch.pooled_gather, dispatch.topk_scores_fused = emb_ref.pooled_gather, \
+        topk_ref.topk_scores
+    try:
+        yield
+    finally:
+        dispatch.pooled_gather, dispatch.topk_scores_fused = saved
+
+
+def youtube_category(name: str) -> str:
+    """The category of a device kernel in a YoutubeDNN profile."""
+    low = name.lower()
+    for cat, keys in (("pooled gather", ("pooled_gather",)),
+                      ("top-k", ("topk",)),
+                      ("MLP GEMMs", ("gemm", "gemv", "xmma", "cutlass", "splitk", "kernel2")),
+                      ("loss", ("softmax", "nll", "cross_entropy")),
+                      ("table gradients (index_add, embedding backward)",
+                       ("index", "embedding", "scatter", "sort", "radix")),
+                      ("optimizer", ("adam", "multi_tensor")),
+                      ("normalisation (norms, divisions)", ("norm", "reduce", "div", "clamp")),
+                      ("host-device copies", ("memcpy",))):
+        if any(k in low for k in keys):
+            return cat
+    return "other (elementwise)"
+
+
+def youtube_serve_block(model, hist, items, dev):
+    """run_seqret's serving step on one block of histories: the user tower,
+    then the top-k over the whole catalog; the ids come back to the host."""
+    import torch
+
+    from recsys_tpu_torch.train.retrieval import topk_scores
+
+    with torch.inference_mode():
+        u = model.user_embed({"hist": torch.from_numpy(hist).to(dev)})
+        return topk_scores(u, items, k=YOUTUBE_K)[1].cpu().numpy()
+
+
+def phase_youtube_serve(model, test, num_items, dev, label) -> dict:
+    """Retrieval over the test users in 8192-query blocks; recall@10."""
+    import torch
+
+    import retrieval_check as rc
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import topk as topk_ref
+    from recsys_tpu_torch.train.metrics import recall_at_k
+    from recsys_tpu_torch.train.retrieval import topk_scores
+
+    model.eval()
+    hist, n = test["hist"], len(test["hist"])
+    blocks = -(-n // YOUTUBE_BLOCK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    with torch.inference_mode():
+        items = model.all_item_embeddings()
+    ids = np.concatenate([youtube_serve_block(model, hist[s:s + YOUTUBE_BLOCK], items, dev)
+                          for s in range(0, n, YOUTUBE_BLOCK)])
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    expected = {**dict.fromkeys(launches, 0), "pooled_gather": blocks, "topk_scores": blocks}
+    if launches != expected or ids.shape != (n, YOUTUBE_K):
+        raise AssertionError(f"youtube serve {label}: launches {launches}, expected "
+                             f"{expected}, ids {ids.shape}")
+    recall = recall_at_k(ids, test["item_id"])
+
+    # kernels against plain versions on the first and the ragged last block
+    errs, equal, agree, same = [], [], [], []
+    for lo in (0, (blocks - 1) * YOUTUBE_BLOCK):
+        h = {"hist": torch.from_numpy(hist[lo:lo + YOUTUBE_BLOCK]).to(dev)}
+        with torch.inference_mode():
+            u_k = model.user_embed(h)
+            v_k, i_k = topk_scores(u_k, items, k=YOUTUBE_K)
+            with plain_retrieval():
+                u_p = model.user_embed(h)
+            v_p, i_p = topk_ref.topk_scores(u_p, items, YOUTUBE_K)
+        errs.append(check_close(f"youtube serve {label} user vectors rows {lo}..",
+                                u_k, u_p, YOUTUBE_EMB_TOL))
+        equal.append(float((i_k == i_p).double().mean()))
+        agree.append(rc.topk_agrees(v_k, i_k, v_p, u_p, items, rc.score_limit(u_p, items)))
+        same.append(np.array_equal(i_k.cpu().numpy(), ids[lo:lo + YOUTUBE_BLOCK]))
+    emit({"phase": "check", "case": f"youtube serve {label} top-10 kernels vs plain",
+          "indices_equal_share": min(equal), "ranks_agree_within_score_limit": all(agree),
+          "blocks_served_again_identical": all(same),
+          "score_rtol_of_norms": rc.SCORE_RTOL, "ok": all(agree)})
+    if not all(agree):
+        raise AssertionError(f"youtube serve {label}: top-10 disagrees with the plain path")
+
+    one = hist[:YOUTUBE_BLOCK]
+    lat = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        youtube_serve_block(model, one, items, dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for s in range(0, n, YOUTUBE_BLOCK):
+        youtube_serve_block(model, hist[s:s + YOUTUBE_BLOCK], items, dev)
+    wall = time.perf_counter() - t0
+    emit({"phase": "profile", "config": f"youtube serve {label}",
+          **profile_call(lambda: youtube_serve_block(model, one, items, dev),
+                         youtube_category)})
+    res = {"phase": "youtube serve", "config": label, "queries": n, "blocks": blocks,
+           "num_items": num_items, "recall@10": recall, "random_recall@10": YOUTUBE_K / num_items,
+           "launches": launches, "expected_launches": expected,
+           "max_abs_err": max(e["max_abs_err"] for e in errs),
+           "indices_equal_share": min(equal),
+           "block_ms_median": float(np.median(lat)), "block_ms_min": float(np.min(lat)),
+           "queries_per_s": n / wall,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(f"youtube serve ({label}): recall@10={recall:.4f} over {num_items} items "
+          f"(random {YOUTUBE_K / num_items:.5f})", flush=True)
+    emit(res)
+    return res
+
+
+def phase_youtube_train(model, train, num_items, dev):
+    """Trainer.fit for YOUTUBE_STEPS steps; returns (result, the model as
+    the fit left it)."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train import losses
+    from recsys_tpu_torch.train.loop import Trainer
+
+    # logQ from the train stream's item counts, as run_seqret
+    log_q = losses.popularity_log_q(np.bincount(train["item_id"], minlength=num_items)).to(dev)
+
+    def loss_fn(out, batch):
+        return losses.in_batch_sampled_softmax(out["user"], out["item"],
+                                               item_log_q=log_q[batch["item_id"].long()])
+
+    order = np.random.default_rng(0).permutation(len(train["item_id"]))
+    n = YOUTUBE_STEPS * YOUTUBE_BATCH
+    head = {k: v[order[:n]] for k, v in train.items()}
+    extra = {k: v[order[n:n + YOUTUBE_BATCH]] for k, v in train.items()}
+    trainer = Trainer(model, loss_fn=loss_fn, learning_rate=LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.fit(head, batch_size=YOUTUBE_BATCH, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    expected = {**dict.fromkeys(launches, 0), "pooled_gather": YOUTUBE_STEPS}
+    if launches != expected:
+        raise AssertionError(f"youtube train: launches {launches}, expected {expected}")
+    if not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"youtube train: loss {hist['loss']} not finite")
+    peak = torch.cuda.max_memory_allocated()
+    fitted = copy.deepcopy(trainer.model)  # the steps below train on one batch
+
+    ref = copy.deepcopy(trainer)
+    loss_k = trainer.train_step(extra)
+    with plain_retrieval():
+        loss_p = ref.train_step(extra)
+    cmp = compare_sasrec_step(f"batch={YOUTUBE_BATCH}", trainer, ref, loss_k, loss_p,
+                              label="youtube")
+    del ref
+
+    steps_ms = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(extra)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "profile", "config": "youtube train",
+          **profile_call(lambda: (trainer.train_step(extra), torch.cuda.synchronize()),
+                         youtube_category)})
+    res = {"phase": "youtube train", "steps": YOUTUBE_STEPS, "rows": n, "batch": YOUTUBE_BATCH,
+           "epoch_loss": hist["loss"][0], "launches": launches, "expected_launches": expected,
+           "step_check": cmp,
+           "step_ms_median": float(np.median(steps_ms)), "step_ms_min": float(np.min(steps_ms)),
+           "step_examples_per_s": YOUTUBE_BATCH / (float(np.median(steps_ms)) / 1e3),
+           "fit_seconds": fit_s, "fit_examples_per_s": n / fit_s,
+           "max_memory_allocated_bytes": peak}
+    emit(res)
+    return res, fitted
+
+
+def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
+    """Kernel, plain and library ms: the pooled gather on the first serving
+    block of test histories (D = 32, f32 table); the top-k at the serving
+    block (8192 unit queries over the catalog, D = 32) and at the sweep
+    shape (1024 x 1,000,000 x 64, normal vectors), k = 10."""
+    import torch
+    import torch.nn.functional as F
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import embedding as emb_ref
+    from recsys_tpu_torch.kernels import topk as topk_ref
+
+    rows_np = test_hist[:YOUTUBE_BLOCK]
+    b, length = rows_np.shape
+    table = torch.from_numpy(rng.standard_normal((num_items, YOUTUBE_DIM),
+                                                 dtype=np.float32)).to(dev)
+    rows = torch.from_numpy(rows_np).to(dev)
+    mask = rows != 0
+    weights = mask.float()
+    touched = len(np.unique(rows_np[rows_np != 0]))
+    # each input once: the rows the real positions touch, the ids and the
+    # bool mask; the output once
+    bound_ms, kind = bound(touched * YOUTUBE_DIM * 4 + b * length * 5 + b * YOUTUBE_DIM * 4,
+                           float((rows_np != 0).sum()) * YOUTUBE_DIM, F32_FLOPS)
+    pooled = {"ms": cuda_ms(lambda: dispatch.pooled_gather(table, rows, mask), iters=200),
+              "plain_ms": cuda_ms(lambda: emb_ref.pooled_gather(table, rows, mask)),
+              "library_ms": cuda_ms(lambda: F.embedding_bag(rows, table, mode="sum",
+                                                            per_sample_weights=weights),
+                                    iters=200),
+              "bound_ms": bound_ms, "bound_by": kind, "shape": [b, length, YOUTUBE_DIM],
+              "rows_touched": touched, "real_positions": int((rows_np != 0).sum()),
+              "bound_ms_every_position_read": bound(
+                  b * length * YOUTUBE_DIM * 4 + b * length * 8 + b * YOUTUBE_DIM * 4, 0,
+                  F32_FLOPS)[0],
+              "library": "F.embedding_bag(mode='sum', per_sample_weights=mask)"}
+    emit({"phase": "timing", "kernel": "pooled_gather", "dtype": "f32", **pooled})
+
+    res = {"pooled_gather": pooled}
+    for name, (nq, n, d), unit in (("serving", (YOUTUBE_BLOCK, num_items, YOUTUBE_DIM), True),
+                                   ("sweep", YOUTUBE_SWEEP, False)):
+        q = torch.from_numpy(rng.standard_normal((nq, d), dtype=np.float32)).to(dev)
+        items = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        if unit:
+            q, items = q / q.norm(dim=1, keepdim=True), items / items.norm(dim=1, keepdim=True)
+        k = YOUTUBE_K
+        bound_ms, kind = bound((nq * d + n * d) * 4 + nq * k * 8, 2.0 * nq * n * d, F32_FLOPS)
+        t = {"ms": cuda_ms(lambda: dispatch.topk_scores_fused(q, items, k), 20, 3),
+             "plain_ms": cuda_ms(lambda: topk_ref.topk_scores(q, items, k), 3, 1),
+             "library_ms": cuda_ms(lambda: torch.topk(q @ items.T, k), 5, 2),
+             "bound_ms": bound_ms, "bound_by": kind, "shape": [nq, n, d], "k": k,
+             "library": "torch.topk(q @ items.T, k): two calls, the (Q, N) scores "
+                        "materialised"}
+        emit({"phase": "timing", "kernel": f"topk_scores {name}", "dtype": "f32", **t})
+        res[f"topk_scores {name}"] = t
+        del q, items
+        torch.cuda.empty_cache()
+    res["topk_scores"] = res["topk_scores serving"]
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1410,6 +1807,19 @@ def main() -> int:
     sas_train = phase_sasrec_train(rng, dev)
     sas_cli = phase_sasrec_cli(dev)
     timing.update(phase_flash_timing(rng, dev))
+    ni, yt_train, yt_test = phase_youtube_data()
+    worst.update(phase_youtube_check(rng, dev, ni))
+    yt_params = youtube_jax_params(rng, ni)
+    yt_serve = phase_youtube_serve(youtube_model(yt_params, ni, dev), yt_test, ni, dev,
+                                   "random weights")
+    yt_fit, yt_fitted = phase_youtube_train(youtube_model(yt_params, ni, dev), yt_train, ni,
+                                            dev)
+    yt_after = phase_youtube_serve(yt_fitted, yt_test, ni, dev, f"after {YOUTUBE_STEPS} steps")
+    if not yt_after["recall@10"] > yt_after["random_recall@10"]:
+        raise AssertionError(f"youtube: recall@10 {yt_after['recall@10']} after the fit is "
+                             f"not above random {yt_after['random_recall@10']}")
+    del yt_fitted
+    timing.update(phase_youtube_timing(rng, dev, yt_test["hist"], ni))
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -1425,9 +1835,13 @@ def main() -> int:
                                 "recsys_tpu/kernels/pallas/attention_tpu.py:165"),
         "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
                                 "recsys_tpu/kernels/pallas/attention_tpu.py:350"),
+        "pooled_gather": (csrc + "pooled_gather.cu",
+                          "recsys_tpu/kernels/pallas/embedding_tpu.py:76"),
+        "topk_scores": (csrc + "topk_scores.cu", "recsys_tpu/kernels/pallas/topk_tpu.py:78"),
     }
     kernels = []
-    runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli]
+    runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli,
+            yt_serve, yt_fit, yt_after]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

@@ -1,6 +1,7 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
-``params`` is the flax ``params`` tree of a JAX model (DLRM, SASRec) as
+``params`` is the flax ``params`` tree of a JAX model (DLRM, SASRec,
+YoutubeDNN) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
@@ -58,17 +59,12 @@ def _tower(prefix: str, tree: dict, module) -> dict:
     return out
 
 
-def params_from_jax(params: dict, schema: FeatureSchema, model) -> dict:
-    """JAX DLRM params -> the port DLRM's state dict.
-
-    ``StackedEmbedding_0/table_g`` is the row-packed
-    ``(_pad8(ceil(V_g / p)), p * D)`` table; its logical ``(V_g, D)`` view
-    is ``reshape(-1, D)[:V_g]``.  ``MLP_0``/``FusedMLP_0`` is the bottom
-    tower when the schema has dense features, and the next one the top.
-    """
+def _unpack_tables(emb: dict, schema: FeatureSchema, num_groups: int | None,
+                   prefix: str) -> dict:
+    """A JAX ``StackedEmbedding``'s row-packed ``table_g``, each
+    ``(_pad8(ceil(V_g / p)), p * D)``, -> the logical ``(V_g, D)`` views
+    ``reshape(-1, D)[:V_g]`` under ``{prefix}table_g``."""
     d = schema.embed_dim
-    emb = params["StackedEmbedding_0"]
-    num_groups = len(model.embedding.group_vocab)
     _, _, group_vocab = group_assignment(schema, num_groups)
     state = {}
     for g, v in enumerate(group_vocab):
@@ -77,7 +73,19 @@ def params_from_jax(params: dict, schema: FeatureSchema, model) -> dict:
         want = (_pad8(-(-max(v, 1) // p)), p * d)
         if packed.shape != want:
             raise ValueError(f"table_{g}: shape {packed.shape}, expected {want}")
-        state[f"embedding.table_{g}"] = _tensor(packed.reshape(-1, d)[:max(v, 1)])
+        state[f"{prefix}table_{g}"] = _tensor(packed.reshape(-1, d)[:max(v, 1)])
+    return state
+
+
+def params_from_jax(params: dict, schema: FeatureSchema, model) -> dict:
+    """JAX DLRM params -> the port DLRM's state dict.
+
+    ``StackedEmbedding_0`` holds the row-packed tables (unpacked here);
+    ``MLP_0``/``FusedMLP_0`` is the bottom tower when the schema has dense
+    features, and the next one the top.
+    """
+    state = _unpack_tables(params["StackedEmbedding_0"], schema,
+                           len(model.embedding.group_vocab), "embedding.")
     kind = "FusedMLP" if isinstance(model.top, FusedMLP) else "MLP"
     towers = ([("bottom", model.bottom)] if model.has_dense else []) + [("top", model.top)]
     for i, (name, module) in enumerate(towers):
@@ -136,4 +144,15 @@ def sasrec_params_from_jax(params: dict, model) -> dict:
     for i in range(len(model.blocks)):
         state.update({f"blocks.{i}.{k}": v
                       for k, v in transformer_block_from_jax(params[f"blocks_{i}"]).items()})
+    return state
+
+
+def youtube_dnn_params_from_jax(params: dict, model) -> dict:
+    """JAX YoutubeDNN params -> the port YoutubeDNN's state dict: the user
+    tables (``user_table/table_g``, one per owner field, row-packed)
+    unpacked, ``item_table`` (num_items, D) as it is, and ``user_mlp``'s
+    ``Dense_i`` kernels transposed."""
+    state = _unpack_tables(params["user_table"], model.schema, None, "user_table.")
+    state["item_table"] = _tensor(params["item_table"])
+    state.update(_tower("user_mlp", params["user_mlp"], model.user_mlp))
     return state

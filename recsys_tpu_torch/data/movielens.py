@@ -1,10 +1,12 @@
-"""MovieLens-style sequence data for SASRec (the port's copy of
-``recsys_tpu/data/movielens.py::synthetic_ratings`` and
-``build_sasrec_dataset``), in numpy only: ratings are a dict of columns
-(``user_id``, ``item_id``, ``rating``, ``timestamp``) instead of a pandas
-DataFrame.  Both functions draw from their generator in the JAX package's
-order, so the same seed gives the same arrays bit for bit.  The JAX
-package's native C++ sequence builder is not ported yet.
+"""MovieLens-style sequence data for SASRec and YoutubeDNN (the port's copy
+of ``recsys_tpu/data/movielens.py::synthetic_ratings``,
+``build_sasrec_dataset`` and ``build_seq_retrieval_dataset``), in numpy
+only: ratings are a dict of columns (``user_id``, ``item_id``, ``rating``,
+``timestamp``) instead of a pandas DataFrame.  The functions that draw
+random numbers draw from their generator in the JAX package's order, so the
+same seed gives the same arrays bit for bit; the retrieval dataset draws
+none and is bit-equal outright.  The JAX package's native C++ version of
+the SASRec dataset is not ported yet.
 """
 from __future__ import annotations
 
@@ -113,3 +115,64 @@ def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20
 
     return (num_items, pack(train_h, train_p, train_n), pack(val_h, val_p, val_n),
             pack(test_h, test_p, test_n))
+
+
+def _kept_sequences(ratings: dict, min_item_count: int):
+    """The protocol's common front: items seen fewer than ``min_item_count``
+    times dropped, the rest remapped to 1..N over their sorted ids (0 is
+    the pad), events stably sorted by (user, timestamp).  Returns
+    (num_items, iid in that order, start of each user's run, its length),
+    users ascending."""
+    user = np.asarray(ratings["user_id"])
+    item = np.asarray(ratings["item_id"])
+    ts = np.asarray(ratings["timestamp"])
+    vals, counts = np.unique(item, return_counts=True)
+    item_ids = vals[counts >= min_item_count]  # sorted
+    keep = np.isin(item, item_ids)
+    user, item, ts = user[keep], item[keep], ts[keep]
+    iid = np.searchsorted(item_ids, item) + 1
+    order = np.lexsort((ts, user))  # by user, then time; stable
+    user, iid = user[order], iid[order]
+    starts = np.flatnonzero(np.r_[True, user[1:] != user[:-1]]) if len(user) else \
+        np.zeros(0, np.int64)
+    lens = np.diff(np.r_[starts, len(user)])
+    return len(item_ids) + 1, iid, starts, lens
+
+
+def _prefix_rows(iid: np.ndarray, start: np.ndarray, t: np.ndarray, maxlen: int,
+                 chunk: int = 1 << 17) -> np.ndarray:
+    """(R, maxlen) int32: row r holds the last ``maxlen`` items of the
+    ``t[r]``-item prefix of the sequence starting at ``iid[start[r]]``,
+    padded in front with 0."""
+    out = np.zeros((len(t), maxlen), np.int32)
+    cols = np.arange(maxlen) - maxlen
+    for lo in range(0, len(t), chunk):
+        pos = t[lo:lo + chunk, None] + cols  # position within the sequence
+        src = start[lo:lo + chunk, None] + np.maximum(pos, 0)
+        out[lo:lo + chunk] = np.where(pos >= 0, iid[src], 0)
+    return out
+
+
+def build_seq_retrieval_dataset(ratings: dict, maxlen: int = 20, min_item_count: int = 2,
+                                seed: int = 2020):
+    """The sequence-retrieval protocol of YoutubeDNN and MIND: predict the
+    next item from the padded watch history (in-batch softmax supplies the
+    negatives).  Returns (num_items, train, test), each a dict of int32
+    ``hist`` (N, maxlen) and ``item_id`` (N,); item ids 1..num_items-1 (0 is
+    the pad).  Users with fewer than 3 kept events are dropped; every prefix
+    of 1..n-2 items predicts the next item for training, and the n-1 item
+    history predicts the last item for test.  ``seed`` is unused (the JAX
+    signature's); the function is vectorised over all prefixes at once."""
+    del seed
+    num_items, iid, starts, lens = _kept_sequences(ratings, min_item_count)
+    ok = lens >= 3
+    starts, lens = starts[ok], lens[ok]
+    n_train = lens - 2
+    row_start = np.repeat(starts, n_train)
+    # t = 1..n-2 within each user's run
+    t = np.arange(n_train.sum()) - np.repeat(np.cumsum(n_train) - n_train, n_train) + 1
+    train = {"hist": _prefix_rows(iid, row_start, t, maxlen),
+             "item_id": iid[row_start + t].astype(np.int32)}
+    test = {"hist": _prefix_rows(iid, starts, lens - 1, maxlen),
+            "item_id": iid[starts + lens - 1].astype(np.int32)}
+    return num_items, train, test

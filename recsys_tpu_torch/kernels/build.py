@@ -53,6 +53,13 @@ SIGNATURES = {
         "flash_attention_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                             _F, _I, _P]),
     },
+    "pooled_gather": {
+        "pooled_gather_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    },
+    "topk_scores": {
+        "topk_scores_plan": (_I, [_I, _I, _I, _I, _P]),
+        "topk_scores_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    },
     "flash_attention_bwd": {
         "flash_attention_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
         "flash_attention_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

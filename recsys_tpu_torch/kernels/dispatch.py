@@ -6,11 +6,13 @@ failed launch to the plain path.
 integers, incremented only where a kernel is launched), so a run can show
 that its main path went through the kernels.
 
-``DotInteraction``, ``FusedMLPFunction`` and ``FlashAttention`` are the
-autograd functions the model layers call: their forwards are the forward
-kernels; the dot interaction's backward is torch ops (the JAX package
-leaves it to XLA), the fused MLP's backward is the ``mlp_bwd`` kernel and
-the attention's the ``flash_attention_bwd`` kernels.
+``DotInteraction``, ``FusedMLPFunction``, ``FlashAttention`` and
+``SegmentSumGather`` are the autograd functions the model layers call: their
+forwards are the forward kernels; the dot interaction's and the pooled
+gather's backwards are torch ops (the JAX package leaves them to XLA), the
+fused MLP's backward is the ``mlp_bwd`` kernel and the attention's the
+``flash_attention_bwd`` kernels.  ``topk_scores_fused`` (retrieval) has no
+gradient.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ import torch
 
 from recsys_tpu_torch.kernels import attention as attn_ref
 from recsys_tpu_torch.kernels import build
+from recsys_tpu_torch.kernels import embedding as gather_ref
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
 from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.kernels import mlp as mlp_ref
+from recsys_tpu_torch.kernels import topk as topk_ref
 
 LAUNCHES = {"dot_interaction": 0, "mlp_fwd": 0, "mlp_bwd": 0,
             "embedding_adam": 0, "embedding_rowwise_adagrad": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "pooled_gather": 0, "topk_scores": 0}
 
 
 def reset_launches() -> None:
@@ -368,6 +373,89 @@ def flash_attention_bwd(q, k, v, mask, out, lse, do, causal: bool = False):
     return dq, dk, dv
 
 
+def pooled_gather(table: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(V, D) f32 or bf16 table, (B, L) integer rows in [0, V), (B, L) mask
+    (nonzero = a real position) -> (B, D) f32 masked sum; see
+    ``kernels/embedding.py::pooled_gather``.  The kernel takes every D."""
+    if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pooled_gather: table must be (V, D) f32 or bf16, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    if rows.dim() != 2 or rows.shape != mask.shape or rows.is_floating_point():
+        raise ValueError(f"pooled_gather: rows must be integer (B, L) and mask (B, L), got "
+                         f"{rows.dtype} {tuple(rows.shape)} and {tuple(mask.shape)}")
+    if table.device.type == "cpu":
+        return gather_ref.pooled_gather(table, rows, mask)
+    if table.device.type != "cuda":
+        raise ValueError(f"pooled_gather: no kernel for device {table.device}")
+    rows = rows.to(torch.int32).contiguous()
+    mask = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
+    _check_cuda("pooled_gather", [table, rows, mask], table.device)
+    b, length = rows.shape
+    out = torch.empty((b, table.shape[1]), dtype=torch.float32, device=table.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(table.device):
+        rc = build.libraries()["pooled_gather"].pooled_gather_launch(
+            table.data_ptr(), rows.data_ptr(), mask.data_ptr(), out.data_ptr(), b, length,
+            table.shape[1], int(table.dtype == torch.bfloat16), _stream(table))
+    build.check(rc, "pooled_gather")
+    LAUNCHES["pooled_gather"] += 1
+    return out
+
+
+def _chunked(x: torch.Tensor) -> torch.Tensor:
+    """x (R, D) f32 with D padded by zero columns to a multiple of 4 and its
+    storage 16-byte aligned, for the top-k kernel's 16-byte loads (zero
+    columns leave every dot product as it is)."""
+    x = x.float().contiguous()
+    pad = -x.shape[1] % 4
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
+    """The k best items of each query by exact f32 dot product, without the
+    (Q, N) score matrix: q (Q, D), items (N, D) -> (values (Q, k) f32,
+    indices (Q, k) int32), best first, ties to the lower id; see
+    ``kernels/topk.py``.  Takes 1 <= k <= 16 and N > k, as the TPU kernel's
+    callers route it."""
+    if q.dim() != 2 or items.dim() != 2 or q.shape[1] != items.shape[1]:
+        raise ValueError(f"topk_scores_fused: expected q (Q, D) and items (N, D), got "
+                         f"{tuple(q.shape)} and {tuple(items.shape)}")
+    if not topk_ref.in_domain(k, items.shape[0]):
+        raise ValueError(f"topk_scores_fused: the kernel takes 1 <= k <= {topk_ref.MAX_K} "
+                         f"and more than k items, got k={k}, N={items.shape[0]}")
+    if q.device.type == "cpu":
+        return topk_ref.topk_scores(q, items, k)
+    if q.device.type != "cuda":
+        raise ValueError(f"topk_scores_fused: no kernel for device {q.device}")
+    if items.device != q.device:
+        raise ValueError(f"topk_scores_fused: items on {items.device}, expected {q.device}")
+    nq, n = q.shape[0], items.shape[0]
+    values = torch.empty((nq, k), dtype=torch.float32, device=q.device)
+    indices = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return values, indices
+    qc, ic = _chunked(q), _chunked(items)
+    d4 = qc.shape[1] // 4
+    lib = build.libraries()["topk_scores"]
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(q.device):
+        if not lib.topk_scores_plan(nq, n, d4, k, ctypes.cast(plan, ctypes.c_void_p)):
+            raise ValueError(f"topk_scores_fused: the kernel does not take D={q.shape[1]}")
+        splits = plan[2]
+        parts = [torch.empty((nq, splits, k), dtype=dt, device=q.device)
+                 for dt in (torch.float32, torch.int32)] if splits > 1 else [None, None]
+        rc = lib.topk_scores_launch(
+            qc.data_ptr(), ic.data_ptr(), values.data_ptr(), indices.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in parts], nq, n, d4, k,
+            ctypes.cast(plan, ctypes.c_void_p), _stream(q))
+    build.check(rc, "topk_scores_fused")
+    LAUNCHES["topk_scores"] += 1
+    return values, indices
+
+
 # -- autograd ---------------------------------------------------------------
 @functools.lru_cache(maxsize=16)
 def _dot_sel(f: int, self_interaction: bool, device: torch.device) -> torch.Tensor:
@@ -454,3 +542,43 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sq·Sk = 512² was measured on a TPU (ROADMAP Queue 3).  The semantics
     are the flash kernel's: a query row with no key to attend gives 0."""
     return FlashAttention.apply(q, k, v, mask, causal)
+
+
+class SegmentSumGather(torch.autograd.Function):
+    """The pooled lookup with a gradient to the table: the forward is the
+    pooled-gather kernel's masked sum (its plain version on a CPU tensor)
+    with the ``mean`` or ``sqrtn`` scaling applied after it; the backward is
+    the JAX package's ``_ssg_bwd`` in torch ops, each position's cotangent
+    weighted by its mask (and the scaling) and scatter-added into a zero
+    (V, D) table gradient.  Masked positions add 0, so the pad row's
+    gradient stays 0.  Called as ``SegmentSumGather.apply(table, rows, mask,
+    mode)``."""
+
+    @staticmethod
+    def forward(ctx, table, rows, mask, mode):
+        summed = pooled_gather(table, rows, mask)
+        ctx.save_for_backward(rows, mask)
+        ctx.mode, ctx.table_shape, ctx.table_dtype = mode, table.shape, table.dtype
+        return gather_ref.pool_scale(summed, mask, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, mask = ctx.saved_tensors
+        w = gather_ref.pool_scale((mask != 0).to(g.dtype), mask, ctx.mode)  # (B, L)
+        d = ctx.table_shape[1]
+        per_row = (g[:, None, :] * w[..., None]).reshape(-1, d)
+        dtable = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        dtable.index_add_(0, rows.reshape(-1).long(), per_row)
+        return dtable.to(ctx.table_dtype), None, None, None
+
+
+def segment_sum_gather(table: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
+                       mode: str = "mean") -> torch.Tensor:
+    """Pooled embedding of padded sequences (the counterpart of the JAX
+    package's ``kernels/dispatch.py::segment_sum_gather``): table (V, D),
+    rows (B, L), mask (B, L) -> (B, D) with ``mode`` in sum, mean, sqrtn.
+    A CUDA tensor takes the pooled-gather kernel at every D: the JAX rule
+    ``D % 128 == 0`` fits the TPU's 128 lanes, not the card (ROADMAP Queue
+    3)."""
+    gather_ref.check_mode(mode)
+    return SegmentSumGather.apply(table, rows, mask, mode)

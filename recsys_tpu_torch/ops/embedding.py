@@ -14,6 +14,8 @@ import torch
 from torch import nn
 
 from recsys_tpu_torch.core.features import FeatureSchema
+from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.kernels import embedding as emb_ops
 
 
 def group_assignment(schema: FeatureSchema, num_groups: int | None):
@@ -48,7 +50,11 @@ class StackedEmbedding(nn.Module):
 
     ``forward`` takes field-local IDs shaped (B, F) ordered like
     ``schema.sparse`` and returns (B, F, D) in ``param_dtype``.  Table ``g``
-    is the parameter ``table_{g}``, shaped (V_g, D).
+    is the parameter ``table_{g}``, shaped (V_g, D).  ``lookup`` embeds ids
+    of any shape for one named field (sparse or varlen) and
+    ``pooled_lookup`` pools a padded (B, L) id sequence of one field
+    through ``dispatch.segment_sum_gather`` (the pooled-gather kernel on a
+    CUDA tensor).  A schema may hold varlen fields only.
 
     ``perturb_out`` is the tap of the fused embedding optimizers (the JAX
     package's ``perturb_out``): when gradients are on and the tables are
@@ -69,6 +75,7 @@ class StackedEmbedding(nn.Module):
         self.tap = None
         d = schema.embed_dim
         group_of, offset_in, group_vocab = group_assignment(schema, num_groups)
+        self._group_of, self._offset_in = group_of, offset_in
         self.group_vocab = list(group_vocab)
         for g, v in enumerate(group_vocab):
             # uniform(-0.05, 0.05), the Keras Embedding default
@@ -87,7 +94,7 @@ class StackedEmbedding(nn.Module):
             self.register_buffer(f"offs_{g}", torch.tensor(offs, device=device),
                                  persistent=False)
         # output position of each group's columns, to undo the grouping
-        order = np.concatenate([by_group[g] for g in self._groups])
+        order = np.concatenate([by_group[g] for g in self._groups] or [np.zeros(0, int)])
         self._in_order = bool((order == np.arange(len(order))).all())
         self.register_buffer("unperm", torch.as_tensor(np.argsort(order),
                                                        device=device),
@@ -110,7 +117,35 @@ class StackedEmbedding(nn.Module):
             return out
         return self._gather(sparse_ids)
 
+    def lookup(self, field_name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Embed ``ids`` (any shape) from ``field_name``'s table slice."""
+        g = self._group_of[field_name]
+        return emb_ops.gather(self.table(g), ids.long() + self._offset_in[field_name])
+
+    def pooled_lookup(self, field_name: str, ids: torch.Tensor, mask: torch.Tensor,
+                      mode: str = "mean") -> torch.Tensor:
+        """Masked-pooled embedding (B, D) of a padded (B, L) id sequence:
+        ``mode`` in sum, mean, sqrtn over the positions where ``mask`` is
+        nonzero.  The tables are logical, so every field takes the
+        pooled-gather route (the JAX package's packed tables gather and
+        pool instead)."""
+        rows = ids.to(torch.int32)
+        off = self._offset_in[field_name]
+        return dispatch.segment_sum_gather(self.table(self._group_of[field_name]),
+                                           rows + off if off else rows, mask, mode)
+
+    def table_logical(self, field_name: str) -> torch.Tensor:
+        """(V_group, D) table holding ``field_name`` (already logical)."""
+        g = self._group_of[field_name]
+        return self.table(g)[:self.group_vocab[g]]
+
+    def field_offset(self, field_name: str) -> int:
+        return self._offset_in[field_name]
+
     def _gather(self, sparse_ids: torch.Tensor) -> torch.Tensor:
+        if not self._groups:
+            return torch.zeros((sparse_ids.shape[0], 0, self.schema.embed_dim),
+                               dtype=self.table(0).dtype, device=sparse_ids.device)
         parts = []
         for g in self._groups:
             rows = sparse_ids.index_select(1, getattr(self, f"cols_{g}")).long()

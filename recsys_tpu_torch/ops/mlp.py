@@ -10,17 +10,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.ops.attention import Dropout
 
 
 class MLP(nn.Module):
     """Relu ``Linear`` stack; ``out_dim`` (if set) appends a final linear
     layer with no activation.  ``dtype`` is the COMPUTE dtype (params stay
     f32): as a flax ``Dense(dtype=bf16)``, each layer rounds its input,
-    weight and bias to it.  ``None`` computes in the promoted input type."""
+    weight and bias to it.  ``None`` computes in the promoted input type.
+    ``dropout_rate`` > 0 drops after every hidden activation in training
+    (``ops.attention.Dropout``, on the generator ``Trainer`` gives it)."""
 
     def __init__(self, in_dim: int, hidden_units: Sequence[int],
                  out_dim: int | None = None, dtype: torch.dtype | None = None,
-                 device=None):
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
         dims = [in_dim, *hidden_units] + ([out_dim] if out_dim is not None else [])
         self.layers = nn.ModuleList(
@@ -28,6 +31,8 @@ class MLP(nn.Module):
         )
         self.num_hidden = len(hidden_units)
         self.dtype = dtype
+        self.drops = nn.ModuleList(Dropout(dropout_rate) for _ in hidden_units) \
+            if dropout_rate > 0.0 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, lin in enumerate(self.layers):
@@ -36,6 +41,8 @@ class MLP(nn.Module):
             x = F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
             if i < self.num_hidden:
                 x = torch.relu(x)
+                if self.drops is not None:
+                    x = self.drops[i](x)
         return x
 
 

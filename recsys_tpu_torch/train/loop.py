@@ -86,8 +86,10 @@ class Trainer:
             np.asarray([f.vocab_size for f in schema.sparse])
             if schema is not None and schema.sparse else None
         )
-        # item-id inputs of a sequence model (SASRec): each must index its
-        # item table; the JAX package's gather clamps, a device gather faults
+        self._sparse_key = getattr(model, "sparse_key", "sparse")  # the schema's ids
+        # item-id inputs of a sequence or retrieval model (SASRec,
+        # YoutubeDNN): each must index its item table; the JAX package's
+        # gather clamps, a device gather faults
         self._item_ids = ({k: model.num_items for k in model.id_keys}
                           if hasattr(model, "id_keys") else {})
         # dropout draws from one generator on the device, seeded here
@@ -137,9 +139,9 @@ class Trainer:
             if pad > 0:
                 batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                          for k, v in batch.items()}
-            if self._vocab is not None and "sparse" in batch:
+            if self._vocab is not None and self._sparse_key in batch:
                 # an id outside its table would fault the device gather
-                ids = batch["sparse"]
+                ids = batch[self._sparse_key]
                 if (ids < 0).any() or (ids >= self._vocab).any():
                     raise ValueError(f"sparse ids outside their vocabularies "
                                      f"in rows {s}..{s + valid}")

@@ -1,7 +1,8 @@
 """Loss functions (the port's copy of recsys_tpu.train.losses, the parts
-the DLRM and SASRec slices need)."""
+the DLRM, SASRec and YoutubeDNN slices need)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,3 +30,27 @@ def pairwise_bce(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
     pos_loss = (pos_term * m).sum() / m.sum().clamp_min(1.0)
     neg_m = m[..., None].expand_as(neg_term)
     return pos_loss + (neg_term * neg_m).sum() / neg_m.sum().clamp_min(1.0)
+
+
+def in_batch_sampled_softmax(query_embs: torch.Tensor, item_embs: torch.Tensor,
+                             item_log_q: torch.Tensor | None = None,
+                             temperature: float = 1.0) -> torch.Tensor:
+    """In-batch sampled softmax with logQ correction: query_embs (B, D) and
+    item_embs (B, D), row i's item the positive of row i's query and every
+    other row's a negative.  ``item_log_q`` (B,), each item's log sampling
+    probability, is subtracted from its logit column so popular items are
+    not over-penalised as negatives.  Logits in f32."""
+    logits = (query_embs.float() @ item_embs.float().T) / temperature
+    if item_log_q is not None:
+        logits = logits - item_log_q[None, :]
+    return F.cross_entropy(logits, torch.arange(logits.shape[0], device=logits.device))
+
+
+def popularity_log_q(counts, smoothing: float = 1.0) -> torch.Tensor:
+    """Per-item log sampling probability from positive counts (V,):
+    ``log((counts + smoothing) / total)`` in f32, the ``item_log_q`` table of
+    :func:`in_batch_sampled_softmax` (index it with the batch's item ids)."""
+    if not isinstance(counts, torch.Tensor):
+        counts = torch.from_numpy(np.asarray(counts, np.float32))
+    counts = counts.to(torch.float32) + smoothing
+    return counts.log() - counts.sum().log()

@@ -1,5 +1,5 @@
-"""Evaluation metrics: binned AUC, exact AUC and the ranked-candidate
-HR/NDCG@K, in numpy.
+"""Evaluation metrics: binned AUC, exact AUC, the ranked-candidate
+HR/NDCG@K and retrieval recall@K, in numpy.
 
 The binned AUC is the JAX package's estimator: per-class histograms of
 sigmoid-space scores over fixed bins, then the trapezoidal area over the
@@ -71,3 +71,10 @@ def hit_rate_ndcg_at_k(pos_scores, neg_scores, k: int) -> tuple[float, float]:
     hit = (rank < k).astype(np.float32)
     ndcg = hit * (np.float32(1.0) / np.log2(rank.astype(np.float32) + np.float32(2.0)))
     return float(hit.mean()), float(ndcg.mean())
+
+
+def recall_at_k(retrieved_ids, true_ids) -> float:
+    """Share of examples whose true item is among their retrieved ids:
+    retrieved (B, K), true (B,)."""
+    hits = (np.asarray(retrieved_ids) == np.asarray(true_ids)[:, None]).any(axis=1)
+    return float(hits.mean())

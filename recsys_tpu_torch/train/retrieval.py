@@ -1,0 +1,95 @@
+"""Brute-force top-k retrieval (the port's copy of
+``recsys_tpu/train/retrieval.py``): score every catalog item against every
+query on the device and keep the k best.
+
+Routing follows the JAX package's, by k: where its fused kernel applies
+(k <= 16 and more than k items) both functions call
+``dispatch.topk_scores_fused``, which launches the top-k kernel on a CUDA
+tensor (its plain version on a CPU tensor) and never materialises the
+(Q, N) scores.  Outside that domain they compute what the JAX package's
+XLA route computes, on any device: ``topk_scores`` the full score matrix
+and its k best, ``topk_scores_streaming`` a scan over catalog tiles
+merging a running (Q, k) set.  Those select with a stable descending sort,
+not ``torch.topk``, whose order among equal scores is unspecified: equal
+scores rank the lower item id first, as ``lax.top_k`` and the kernel rank
+them.  ``topk_scores_sharded`` comes with the multi-device slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from recsys_tpu_torch.kernels import default_device, dispatch
+from recsys_tpu_torch.kernels import topk as topk_ref
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device)
+
+
+def _l2(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(eps)
+
+
+def topk_scores(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,
+                normalize: bool = False):
+    """(Q, D) x (N, D) -> (values (Q, k) f32, indices (Q, k) int32), best
+    first."""
+    if normalize:
+        query_embs, item_embs = _l2(query_embs), _l2(item_embs)
+    if topk_ref.in_domain(k, item_embs.shape[0]):
+        return dispatch.topk_scores_fused(query_embs, item_embs, k)
+    return _best(query_embs.float() @ item_embs.float().T, k)
+
+
+def _best(scores: torch.Tensor, k: int):
+    """The k best columns of each row, best first, ties to the lower column."""
+    values, cols = torch.sort(scores, dim=1, descending=True, stable=True)
+    return values[:, :k], cols[:, :k].to(torch.int32)
+
+
+def topk_scores_streaming(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,
+                          tile: int = 8192, normalize: bool = False):
+    """Memory-bounded top-k: at most O(Q·(tile + k)) scores at a time."""
+    if normalize:
+        query_embs, item_embs = _l2(query_embs), _l2(item_embs)
+    if topk_ref.in_domain(k, item_embs.shape[0]):
+        return dispatch.topk_scores_fused(query_embs, item_embs, k)
+    q = query_embs.float()
+    best_v = torch.full((q.shape[0], k), float("-inf"), device=q.device)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.int32, device=q.device)
+    for lo in range(0, item_embs.shape[0], tile):
+        scores = q @ item_embs[lo:lo + tile].float().T
+        ids = torch.arange(lo, lo + scores.shape[1], dtype=torch.int32, device=q.device)
+        best_v, sel = _best(torch.cat([best_v, scores], 1), k)
+        best_i = torch.cat([best_i, ids.expand(q.shape[0], -1)], 1).gather(1, sel.long())
+    return best_v, best_i
+
+
+class BruteForceIndex:
+    """A faiss-like index (``IndexFlatIP``): ``index = BruteForceIndex(dim);
+    index.add(items); values, ids = index.search(queries, k)``, scoring on
+    ``device`` (``cuda`` unless the caller names another) and returning
+    numpy arrays."""
+
+    def __init__(self, dim: int, normalize: bool = False, device=None):
+        self.dim = dim
+        self.normalize = normalize
+        self.device = default_device(device)
+        self._items = None
+
+    def add(self, item_embs) -> None:
+        items = _as_tensor(item_embs, self.device)
+        self._items = items if self._items is None else torch.cat([self._items, items])
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._items is None else int(self._items.shape[0])
+
+    def search(self, query_embs, k: int):
+        if self._items is None:
+            raise ValueError("index is empty; call add() first")
+        q = _as_tensor(query_embs, self.device)
+        with torch.inference_mode():
+            values, indices = topk_scores(q, self._items, k, self.normalize)
+        return values.cpu().numpy(), indices.cpu().numpy()

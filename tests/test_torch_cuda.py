@@ -1,8 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the same inputs, a small DLRM and a small SASRec served on the
-card against the same model on the CPU, and one training step of each on
-the card against the same step on the CPU.  They skip inside a fixture when
-there is no card.
+version on the same inputs, a small DLRM, SASRec and YoutubeDNN served on
+the card against the same model on the CPU, and one training step of each
+on the card against the same step on the CPU.  They skip inside a fixture
+when there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -17,6 +17,8 @@ import torch
 
 import flash_check
 import mlp_bwd_check
+import retrieval_check
+from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
@@ -24,8 +26,10 @@ from recsys_tpu_torch.kernels.interactions import dot_interaction
 from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.models.match.sasrec import SASRec
-from recsys_tpu_torch.train.losses import pairwise_bce
+from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.train.losses import in_batch_sampled_softmax, pairwise_bce
 from recsys_tpu_torch.train.loop import Trainer
+from recsys_tpu_torch.train.retrieval import topk_scores
 from recsys_tpu_torch.train.streaming_embed import host_prep_group
 
 pytestmark = pytest.mark.cuda
@@ -356,6 +360,134 @@ def test_sasrec_train_step_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert dispatch.LAUNCHES == {**dict.fromkeys(dispatch.LAUNCHES, 0),
                                  "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    want = cpu.train_step(batch)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)
+    got_sd, want_sd = card.model.state_dict(), cpu.model.state_dict()
+    for name, w in want_sd.items():
+        # a first Adam step moves a cell by about lr·sign(g): a g within the
+        # sum order's noise of zero may move the other way
+        assert ((got_sd[name].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, name
+
+
+# -- pooled gather and top-k ---------------------------------------------------
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, length, v, d", [(1024, 50, 20_000, 32), (1000, 50, 20_000, 128),
+                                             (33, 7, 500, 7), (5, 70, 300, 300), (3, 1, 10, 16)])
+def test_pooled_gather_kernel_matches_plain(cuda, skewed, dtype, b, length, v, d):
+    """retrieval_check.check_pooled: within the limit, rows with no real
+    position 0, and the sum without each row's last id rejected (D = 7 and
+    300 take the one-element and the column-block paths)."""
+    table, rows, mask = retrieval_check.pooled_inputs(np.random.default_rng(13), b, length, v,
+                                                      d, dtype, skewed, cuda)
+    before = dispatch.LAUNCHES["pooled_gather"]
+    res = retrieval_check.check_pooled(table, rows, mask, dispatch.pooled_gather)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["pooled_gather"] == before + 1
+    assert res["within"] and res["empty_rows_zero"], res
+    assert length == 1 or res["wrong_rejected"], res
+
+
+def test_segment_sum_gather_gradient_on_card_matches_cpu(cuda):
+    table, rows, mask = retrieval_check.pooled_inputs(np.random.default_rng(14), 256, 20, 1000,
+                                                      32, torch.float32, True, "cpu")
+    g = torch.randn(256, 32)
+    grads = []
+    for dev, cot in (("cpu", g), (cuda, g), ("cpu", g.abs())):
+        t = table.detach().to(dev).requires_grad_()
+        (dispatch.segment_sum_gather(t, rows.to(dev), mask.to(dev), "mean") * cot.to(dev)) \
+            .sum().backward()
+        grads.append(t.grad.cpu())
+    # index_add_ on the card adds in another order: a cell that sums many
+    # terms (a Zipf-hot id collects thousands) may move by a few roundings
+    # of the sum of its terms' magnitudes, which the gradient of |g| gives
+    # (the mean's weights are >= 0)
+    diff = (grads[1] - grads[0]).abs()
+    assert (diff <= 1e-5 * grads[2] + 1e-7).all(), float(diff.max())
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("nq, n, d", [(8192, 19_203, 32), (3616, 19_203, 32), (100, 1000, 64),
+                                      (5, 17, 30), (70, 500, 300)])
+def test_topk_kernel_matches_plain(cuda, k, nq, n, d):
+    """retrieval_check.check_topk: values and ranks within the score limit
+    (near-ties may swap), exact ties lower id first, the k-th entry swapped
+    for the (k+1)-th rejected (D = 30 is padded to 32 columns, D = 300 uses
+    the narrow query tile)."""
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(15), nq, n, d, cuda)
+    before = dispatch.LAUNCHES["topk_scores"]
+    res = retrieval_check.check_topk(q, items, k, dispatch.topk_scores_fused, dup)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["topk_scores"] == before + 1
+    assert res["ok"], res
+
+
+def test_topk_kernel_takes_a_million_items(cuda):
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(16), 1024, 1_000_000, 64,
+                                                cuda, normalize=False)
+    res = retrieval_check.check_topk(q, items, 10, dispatch.topk_scores_fused, dup)
+    assert res["ok"], res
+
+
+def test_topk_kernel_refuses_what_it_cannot_take(cuda):
+    q, items = torch.randn(4, 8, device=cuda), torch.randn(20, 8, device=cuda)
+    with pytest.raises(ValueError, match="1 <= k <= 16"):
+        dispatch.topk_scores_fused(q, items, 17)
+    with pytest.raises(ValueError, match="items on"):
+        dispatch.topk_scores_fused(q, items.cpu(), 5)
+    # outside the kernel's domain retrieval takes the full score matrix
+    before = dispatch.LAUNCHES["topk_scores"]
+    v, i = topk_scores(q, items, 17)
+    assert dispatch.LAUNCHES["topk_scores"] == before and v.shape == (4, 17)
+
+
+def _youtube(num_items, maxlen):
+    schema = FeatureSchema(varlen=[VarLenSparseFeature("hist_item", num_items, 32,
+                                                       max_len=maxlen)])
+    torch.manual_seed(0)
+    return YoutubeDNN(schema, num_items=num_items, embed_dim=32, hidden_units=(128, 64))
+
+
+def _youtube_batch(rng, n, maxlen, num_items):
+    lens = rng.integers(0, maxlen + 1, n)
+    hist = rng.integers(1, num_items, (n, maxlen)).astype(np.int32)
+    hist[np.arange(maxlen)[None, :] < maxlen - lens[:, None]] = 0
+    return {"hist": hist, "item_id": rng.integers(1, num_items, n).astype(np.int32)}
+
+
+def _youtube_loss(out, batch):
+    return in_batch_sampled_softmax(out["user"], out["item"])
+
+
+def test_youtube_retrieval_on_card_matches_cpu(cuda):
+    data = _youtube_batch(np.random.default_rng(17), 600, 50, 5000)
+    model = _youtube(5000, 50).eval()
+    hist = torch.from_numpy(data["hist"])
+    with torch.no_grad():
+        want_u = model.user_embed({"hist": hist})
+        want = topk_scores(want_u, model.all_item_embeddings(), k=10)
+        card = copy.deepcopy(model).to(cuda)
+        dispatch.reset_launches()
+        got_u = card.user_embed({"hist": hist.to(cuda)})
+        got = topk_scores(got_u, card.all_item_embeddings(), k=10)
+        torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == {**dict.fromkeys(dispatch.LAUNCHES, 0), "pooled_gather": 1,
+                                 "topk_scores": 1}
+    # exact f32 on both sides, sums in another order
+    torch.testing.assert_close(got_u.cpu(), want_u, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    assert (got[1].cpu() == want[1]).double().mean() > 0.99
+
+
+def test_youtube_train_step_on_card_matches_cpu(cuda):
+    batch = _youtube_batch(np.random.default_rng(18), 512, 50, 2000)
+    model = _youtube(2000, 50)
+    cpu = Trainer(copy.deepcopy(model), loss_fn=_youtube_loss, device="cpu")
+    card = Trainer(model, loss_fn=_youtube_loss)
+    dispatch.reset_launches()
+    loss = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == {**dict.fromkeys(dispatch.LAUNCHES, 0), "pooled_gather": 1}
     want = cpu.train_step(batch)
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)
     got_sd, want_sd = card.model.state_dict(), cpu.model.state_dict()
