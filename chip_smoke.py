@@ -81,7 +81,27 @@ checkout.  Phases, one JSON line each:
 16. youtube timing -- kernel, plain and library ms of the pooled gather and
                 the top-k with their bounds, at the serving block and the
                 sweep shape.
-17. kernels  -- one line naming every kernel with its launches and times.
+17. ctr check -- the FM bi-interaction kernel against its plain version
+                (ctr_check.py): F = 1, 2, 26, 39, 70 fields, D = 1, 8, 16, 32,
+                36, B = 0, 1, 513, 4096, f32 and bf16, and large nearly
+                cancelling inputs; each limit shown to reject two wrong
+                results.
+18. ctr serve -- the protocol ctr models (FM, DeepFM, Wide&Deep,
+                DeepCrossing, DCN, DLRM, AutoInt) at the protocol widths
+                (realistic_criteo: 26 fields at the Criteo vocabularies,
+                D = 16, 13 dense features), weights made from the seed in the
+                JAX layout and converted, served by Trainer.predict over
+                4096-row requests plus a ragged tail; launch counts, logits
+                against the same model on the CPU, request ms, a profile.
+19. ctr train step -- one train_step of FM, DeepFM and AutoInt on the card
+                against the same step on the CPU; step ms, profiles.
+20. ctr protocol -- the port's protocol ctr runner (fit with early stopping,
+                evaluate_auc) with the default models at the full widths,
+                rows cut to 200,000; every test AUC must be above 0.55.
+21. ctr timing -- kernel, plain and bound ms of the bi-interaction at FM's
+                and DeepFM's serving shapes; the flash kernels beside torch
+                SDPA at AutoInt's (4096, 2, 39, 8).
+22. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits non-zero; with no card it exits non-zero before any phase.
@@ -210,6 +230,20 @@ YOUTUBE_SWEEP = (1024, 1_000_000, 64)  # tools/kernel_sweep.py:98-102
 # One train step is held as SASRec's (all f32).  The kernels' own limits
 # are retrieval_check.py's.
 YOUTUBE_EMB_TOL = dict(rtol=1e-5, atol=1e-5)
+
+# The CTR protocol (recsys_tpu/tools/protocol.py:44-147, defaults :720-790):
+# realistic_criteo's 26 fields at the Criteo vocabularies (1,175,204 rows
+# of D = 16 in all), 13 dense features, batch 512, Adam lr 1e-3
+CTR_REQUEST = 4096       # Trainer.predict's and evaluate_auc's batch
+CTR_REQUESTS = 3
+CTR_TAIL = 1000          # ragged last request
+CTR_BATCH = 512
+CTR_ROWS = 200_000       # the protocol's 1,000,000, cut: the phase stays short
+CTR_AUC_FLOOR = 0.55     # the oracle is about 0.835
+CTR_STEP_MODELS = ("fm", "deepfm", "autoint")
+# Card against CPU, f32: sums in another order through an MLP or three
+# attention layers, as SASRec's 1e-4; DLRM computes in bf16 (LOGIT_TOL).
+CTR_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def emit(obj) -> None:
@@ -758,14 +792,17 @@ def phase_serve(params, dev) -> dict:
 
 
 def share_off(got, want, thresh: float) -> float:
-    """Share of the cells of ``got`` more than ``thresh`` from ``want``."""
-    return float(((got.double() - want.double()).abs() > thresh).double().mean())
+    """Share of the cells of ``got`` more than ``thresh`` from ``want``
+    (which may lie on another device)."""
+    return float(((got.double() - want.to(got.device).double()).abs() > thresh)
+                 .double().mean())
 
 
 def share_not_close(got, want, tol: dict) -> float:
     import torch
 
-    return float((~torch.isclose(got.double(), want.double(), **tol)).double().mean())
+    return float((~torch.isclose(got.double(), want.to(got.device).double(), **tol))
+                 .double().mean())
 
 
 def compare_step(name, trainer, ref, loss_k, loss_p) -> dict:
@@ -1026,7 +1063,8 @@ def phase_flash_check(rng, dev) -> dict:
     shapes = [(SAS_BATCH, SAS_HEADS, SAS_LEN, SAS_DIM // SAS_HEADS),
               (64, SAS_HEADS, 300, SAS_DIM // SAS_HEADS),
               (SAS_LONG_CHECK, SAS_HEADS, SAS_LONG, SAS_DIM // SAS_HEADS),
-              (128, 1, 50, SAS_DIM)]  # the cli sasrec shape
+              (128, 1, 50, SAS_DIM),  # the cli sasrec shape
+              (CTR_REQUEST, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2)]  # AutoInt's
     for (b, h, s, d), causal, kind in itertools.product(shapes, (False, True),
                                                        flash_check.MASKS):
         q, k, v, do, mask = flash_check.inputs(rng, b, h, s, d, kind, dev)
@@ -1207,11 +1245,11 @@ def phase_sasrec_serve(rng, dev) -> dict:
 def compare_sasrec_step(name, trainer, ref, loss_k, loss_p, label="sasrec") -> dict:
     """One SASRec (or other all-f32) step through the kernels against the
     same step through the plain versions, from copies of one state (all
-    dense f32 Adam)."""
+    dense f32 Adam); ``ref`` may run on the CPU."""
     import torch
 
     out = {"loss": float(loss_k), "plain_loss": float(loss_p)}
-    ok = bool(torch.isclose(loss_k.double(), loss_p.double(), **SAS_LOGIT_TOL))
+    ok = bool(torch.isclose(loss_k.double().cpu(), loss_p.double().cpu(), **SAS_LOGIT_TOL))
     got_sd, want_sd = trainer.model.state_dict(), ref.model.state_dict()
     shares = {k: share_off(got_sd[k], want_sd[k], LR / 10) for k in want_sd}
     out["worst_param_share"] = max(shares.values())
@@ -1220,7 +1258,7 @@ def compare_sasrec_step(name, trainer, ref, loss_k, loss_p, label="sasrec") -> d
     b1 = trainer.optimizer.param_groups[0]["betas"][0]
     for (k, pk), pp in zip(trainer.model.named_parameters(), ref.model.parameters()):
         mk = trainer.optimizer.state[pk]["exp_avg"]
-        mp = ref.optimizer.state[pp]["exp_avg"]
+        mp = ref.optimizer.state[pp]["exp_avg"].to(mk.device)
         norm = float(mp.norm())
         moments[k] = float((mk - mp).norm()) / norm
         short[k] = float((mk - (1 - b1) * 0.2 * pk.grad - mp).norm()) / norm
@@ -1774,6 +1812,335 @@ def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
     return res
 
 
+# -- the CTR protocol models ---------------------------------------------------
+def phase_ctr_check(rng, dev) -> dict:
+    """ctr_check.check on every case; returns the worst abs error of the
+    bi-interaction kernel at the path's shapes (4096 rows, F = 26 and 39,
+    D = 16, f32, normal inputs)."""
+    import torch
+
+    import ctr_check
+    from recsys_tpu_torch.kernels import dispatch
+
+    worst, summary = 0.0, {}
+    for b, f, d, dtype, kind in ctr_check.cases():
+        x = ctr_check.inputs(rng, b, f, d, dtype, kind, dev)
+        res = ctr_check.check(dispatch.fm_pairwise_vector_fused, x)
+        ok = res["excess"] <= 1.0 and res.get("wrong_least_excess", 2.0) > 1.0
+        if not ok:
+            emit({"phase": "check", "case": f"fm b={b} f={f} d={d} {dtype} {kind}", **res,
+                  "ok": False})
+            raise AssertionError(f"fm_pairwise_vector b={b} f={f} d={d} {dtype} {kind}: the "
+                                 f"kernel exceeds its limit, or a wrong result passes: {res}")
+        key = f"{str(dtype).removeprefix('torch.')} {kind}"
+        s = summary.setdefault(key, {"cases": 0, "worst_excess": 0.0, "max_abs_err": 0.0,
+                                     "least_wrong_excess": float("inf")})
+        s["cases"] += 1
+        s["worst_excess"] = max(s["worst_excess"], res["excess"])
+        s["max_abs_err"] = max(s["max_abs_err"], res["max_abs_err"])
+        s["least_wrong_excess"] = min(s["least_wrong_excess"],
+                                      res.get("wrong_least_excess", float("inf")))
+        if (b, d, dtype, kind) == (CTR_REQUEST, EMBED_DIM, torch.float32, "normal") and \
+                f in (NUM_SPARSE, NUM_SPARSE + NUM_DENSE):
+            worst = max(worst, res["max_abs_err"])
+    for key, s in summary.items():
+        emit({"phase": "check", "case": f"fm_pairwise_vector {key}", **s,
+              "limit": f"{ctr_check.LIMIT} of (sum_f |x_fd|)^2",
+              "wrong_results": list(ctr_check.wrong_results(torch.zeros(1, 2, 1))),
+              "ok": True})
+    torch.cuda.synchronize()
+    return {"fm_pairwise_vector": worst}
+
+
+def ctr_jax_params(rng, model) -> dict:
+    """Random weights for a port CTR model in the JAX package's layout:
+    row-packed tables and first-order weights, flax ``Dense`` kernels (in,
+    out) under the flax submodule names (the inverse of
+    ``convert.ctr_params_from_jax``)."""
+    from recsys_tpu_torch.convert import _pad8, pack_factor
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+
+    def packed(v, width, scale):
+        p = pack_factor(width, v)
+        return (rng.standard_normal((_pad8(-(-max(v, 1) // p)), p * width), dtype=np.float32)
+                * np.float32(scale))
+
+    def dense(lin):
+        fan_in, fan_out = lin.weight.shape[1], lin.weight.shape[0]
+        out = {"kernel": rng.standard_normal((fan_in, fan_out), dtype=np.float32)
+               / np.float32(np.sqrt(fan_in))}
+        if lin.bias is not None:
+            out["bias"] = rng.standard_normal(fan_out, dtype=np.float32) * np.float32(0.01)
+        return out
+
+    def tower(mlp):
+        return {f"Dense_{i}": dense(lin) for i, lin in enumerate(mlp.layers)}
+
+    d = model.schema.embed_dim
+    tree = {"StackedEmbedding_0": {f"table_{g}": packed(v, d, 0.05)
+                                   for g, v in enumerate(model.embedding.group_vocab)}}
+    if isinstance(model, DLRM):
+        tree["MLP_0"], tree["MLP_1"] = tower(model.bottom), tower(model.top)
+        return tree
+    mods = dict(model.named_children())
+    if mods.get("linear") is not None:
+        tree["SparseLinear_0"] = {f"w_{g}": packed(v, 1, 0.01)
+                                  for g, v in enumerate(model.linear.group_vocab)}
+    if "mlp" in mods:
+        tree["MLP_0"] = tower(model.mlp)
+    if "out" in mods:
+        tree["Dense_0"] = dense(model.out)
+    if mods.get("wide") is not None:
+        tree["LinearLogit_0"] = {"Dense_0": dense(model.wide.dense)}
+    if "cross" in mods:
+        tree["CrossNetwork_0"] = {k: rng.standard_normal(tuple(v.shape), dtype=np.float32)
+                                  * np.float32(0.01) for k, v in model.cross.named_parameters()}
+    for i, unit in enumerate(mods.get("residual", ())):
+        tree[f"ResidualUnit_{i}"] = {"Dense_0": dense(unit.dense0), "Dense_1": dense(unit.dense1)}
+    for i, layer in enumerate(mods.get("attention", ())):
+        tree[f"MultiHeadAttention_{i}"] = {n: dense(getattr(layer, n)) for n in ("wq", "wk", "wv")}
+    for name, scale in (("bias", 0.01), ("v_dense", 0.05), ("w_dense", 0.1)):
+        if hasattr(model, name):
+            tree[name] = rng.standard_normal(tuple(getattr(model, name).shape),
+                                             dtype=np.float32) * np.float32(scale)
+    return tree
+
+
+def ctr_model_from_jax(rng, name, schema):
+    """The protocol's model ``name`` on the CPU, with random weights made in
+    the JAX layout and converted."""
+    from recsys_tpu_torch.convert import ctr_params_from_jax
+    from recsys_tpu_torch.tools.protocol import CTR_MODELS, ctr_model_kwargs
+
+    model = CTR_MODELS[name](schema, **ctr_model_kwargs(name))
+    model.load_state_dict(ctr_params_from_jax(ctr_jax_params(rng, model), model))
+    return model
+
+
+def ctr_category(name: str) -> str:
+    """The category of a device kernel in a CTR step's or request's profile."""
+    low = name.lower()
+    for cat, keys in (("fm bi-interaction", ("fm_interaction",)),
+                      ("dot interaction", ("dot_interaction",)),
+                      ("flash attention", ("flash_",)),
+                      ("GEMMs", ("gemm", "gemv", "xmma", "cutlass", "splitk", "kernel2")),
+                      ("gathers and table-gradient scatter",
+                       ("index", "embedding", "gather", "scatter", "sort", "radix")),
+                      ("optimizer", ("adam", "multi_tensor")),
+                      ("host-device copies", ("memcpy",))):
+        if any(k in low for k in keys):
+            return cat
+    return "other (zero fills, elementwise, reductions)"
+
+
+def ctr_expected(counts: dict) -> dict:
+    """The launch counts of a run that launched only ``counts``."""
+    from recsys_tpu_torch.kernels import dispatch
+
+    return {**dict.fromkeys(dispatch.LAUNCHES, 0), **counts}
+
+
+def phase_ctr_serve(rng, dev) -> dict:
+    """Every protocol model at the protocol widths (random weights in the
+    JAX layout, converted) served by Trainer.predict on the card over
+    4096-row requests and a ragged tail, against the same model on the
+    CPU; request ms; one profiled FM request."""
+    import torch
+
+    from recsys_tpu_torch.data.realistic import realistic_criteo
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.tools.protocol import CTR_MODELS
+    from recsys_tpu_torch.train.loop import Trainer
+
+    n = CTR_REQUESTS * CTR_REQUEST + CTR_TAIL
+    schema, data, _ = realistic_criteo(num_examples=n, embed_dim=EMBED_DIM, seed=1)
+    requests = -(-n // CTR_REQUEST)
+    per_request = {"fm": {"fm_pairwise_vector": 1}, "deepfm": {"fm_pairwise_vector": 1},
+                   "dlrm": {"dot_interaction": 1}, "autoint": {"flash_attention_fwd": 3}}
+    one = {k: v[:CTR_REQUEST] for k, v in data.items()}
+    results = {}
+    for name in CTR_MODELS:
+        model = ctr_model_from_jax(rng, name, schema)
+        want = Trainer(copy.deepcopy(model), device="cpu").predict(data, CTR_REQUEST)
+        trainer = Trainer(model)
+
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        logits = trainer.predict(data, batch_size=CTR_REQUEST)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.LAUNCHES)
+        expected = ctr_expected({k: c * requests for k, c in per_request.get(name, {}).items()})
+        if launches != expected:
+            raise AssertionError(f"ctr serve {name}: launches {launches}, expected {expected}")
+        err = check_close(f"ctr serve {name} card vs cpu", torch.from_numpy(logits),
+                          torch.from_numpy(want), LOGIT_TOL if name == "dlrm" else CTR_LOGIT_TOL)
+        lat = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            trainer.predict(one, batch_size=CTR_REQUEST)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if name == "fm":
+            emit({"phase": "profile", "config": "ctr serve fm 4096-row request",
+                  **profile_call(lambda: trainer.predict(one, batch_size=CTR_REQUEST),
+                                 ctr_category)})
+        res = {"phase": "ctr serve", "model": name, "rows": n, "requests": requests,
+               "launches": launches, "expected_launches": expected,
+               "max_abs_err": err["max_abs_err"],
+               "request_ms_median": float(np.median(lat)), "request_ms_min": float(np.min(lat))}
+        print(f"ctr serve {name}: {res['request_ms_median']:.3f} ms a {CTR_REQUEST}-row "
+              "request (median of 7)", flush=True)
+        emit(res)
+        results[name] = res
+        del model, trainer
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ctr_train_step(rng, dev) -> dict:
+    """One Trainer.train_step of FM, DeepFM and AutoInt at the protocol
+    widths on the card against the same step on the CPU; step ms; profiles
+    of the FM and DeepFM steps."""
+    import torch
+
+    from recsys_tpu_torch.data.realistic import realistic_criteo
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train.loop import Trainer
+
+    schema, data, _ = realistic_criteo(num_examples=2 * CTR_BATCH, embed_dim=EMBED_DIM, seed=2)
+    batch = {k: v[:CTR_BATCH] for k, v in data.items()}
+    extra = {k: v[CTR_BATCH:] for k, v in data.items()}
+    results = {}
+    for name in CTR_STEP_MODELS:
+        model = ctr_model_from_jax(rng, name, schema)
+        ref = Trainer(copy.deepcopy(model), device="cpu")
+        trainer = Trainer(model)
+        torch.cuda.synchronize()
+
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        loss_k = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.LAUNCHES)
+        expected = ctr_expected({"flash_attention_fwd": 3, "flash_attention_bwd": 3}
+                                if name == "autoint" else {"fm_pairwise_vector": 1})
+        if launches != expected:
+            raise AssertionError(f"ctr step {name}: launches {launches}, expected {expected}")
+        cmp = compare_sasrec_step(name, trainer, ref, loss_k, ref.train_step(batch), label="ctr")
+        steps_ms = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            trainer.train_step(extra)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+        if name != "autoint":
+            emit({"phase": "profile", "config": f"ctr train step {name}",
+                  **profile_call(lambda: (trainer.train_step(extra), torch.cuda.synchronize()),
+                                 ctr_category)})
+        res = {"phase": "ctr train step", "model": name, "batch": CTR_BATCH,
+               "launches": launches, "expected_launches": expected, "step_check": cmp,
+               "step_ms_median": float(np.median(steps_ms)),
+               "step_ms_min": float(np.min(steps_ms))}
+        emit(res)
+        results[name] = res
+        del model, trainer, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ctr_protocol(dev) -> dict:
+    """The port's protocol ctr runner on the card at the full widths with
+    the default models, rows cut to CTR_ROWS; every AUC must be above
+    CTR_AUC_FLOOR."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.tools.protocol import run_ctr
+
+    torch.cuda.synchronize()
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_ctr(rows=CTR_ROWS, batch_size=CTR_BATCH, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    for name, m in rep["models"].items():
+        print(f"ctr protocol {name}: AUC {m['test_auc']:.4f} ({m['pct_of_oracle']}% of the "
+              f"oracle margin), {m['epochs_ran']} epochs, {m['seconds']} s, "
+              f"{m['fit_examples_per_s']:.0f} fit examples/s", flush=True)
+    res = {"phase": "ctr protocol", "seconds": wall, "launches": launches, **rep}
+    emit(res)
+    low = {k: m["test_auc"] for k, m in rep["models"].items()
+           if not m["test_auc"] > CTR_AUC_FLOOR}
+    if low:
+        raise AssertionError(f"ctr protocol: AUC not above {CTR_AUC_FLOOR}: {low}")
+    missing = [k for k in ("fm_pairwise_vector", "dot_interaction", "flash_attention_fwd",
+                           "flash_attention_bwd") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"ctr protocol: kernels of the path never launched: {missing}")
+    return res
+
+
+def phase_ctr_timing(rng, dev) -> dict:
+    """Kernel, plain and bound ms of the bi-interaction at FM's and DeepFM's
+    serving shapes (4096 x 39 and x 26 fields x 16, f32); the flash forward
+    and backward beside torch SDPA at AutoInt's (4096, 2, 39, 8), no mask,
+    not causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from recsys_tpu_torch.kernels import attention as attn
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels.interactions import fm_pairwise_vector
+
+    res = {}
+    for name, f in (("fm", NUM_SPARSE + NUM_DENSE), ("deepfm", NUM_SPARSE)):
+        b, d = CTR_REQUEST, EMBED_DIM
+        x = torch.from_numpy(rng.standard_normal((b, f, d), dtype=np.float32)).to(dev)
+        # each input read once, the output written once; an add and an FMA
+        # per input element
+        bound_ms, kind = bound((b * f * d + b * d) * 4, 3.0 * b * f * d, F32_FLOPS)
+        t = {"ms": cuda_ms(lambda: dispatch.fm_pairwise_vector_fused(x), iters=200),
+             "plain_ms": cuda_ms(lambda: fm_pairwise_vector(x), iters=200),
+             "bound_ms": bound_ms, "bound_by": kind, "library_ms": None,
+             "shape": [b, f, d], "dtype": "f32"}
+        emit({"phase": "timing", "kernel": f"fm_pairwise_vector {name}", **t})
+        res[f"fm_pairwise_vector {name}"] = t
+    res["fm_pairwise_vector"] = res["fm_pairwise_vector fm"]
+
+    b, h, s, d = CTR_REQUEST, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32))
+                   .to(dev) for _ in range(4))
+    out, lse = dispatch.flash_attention_fwd(q, k, v)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        for t in (qg, kg, vg):
+            t.grad = None
+        F.scaled_dot_product_attention(qg, kg, vg).backward(do)
+
+    t = {"fwd_ms": cuda_ms(lambda: dispatch.flash_attention_fwd(q, k, v), 50, 5),
+         "bwd_ms": cuda_ms(lambda: dispatch.flash_attention_bwd(q, k, v, None, out, lse, do),
+                           50, 5),
+         "plain_fwd_ms": cuda_ms(lambda: attn.flash_attention_fwd(q, k, v), 10, 2),
+         "plain_bwd_ms": cuda_ms(lambda: attn.flash_attention_bwd(q, k, v, None, out, lse, do),
+                                 10, 2),
+         "library_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50, 5),
+         "library_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, 20, 3)}
+    # every (query, key) pair kept: 2·D flops a product, 2 products forward
+    # and 5 backward; the (B, H, S, D) f32 tensors q, k, v, out (and do, dq,
+    # dk, dv backward) and lse once each
+    pairs = b * h * s * s
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(4 * (4 * b * h * s * d + b * h * s),
+                                                 2 * 2 * d * pairs, F32_FLOPS)
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(4 * (8 * b * h * s * d + b * h * s),
+                                                 5 * 2 * d * pairs, F32_FLOPS)
+    emit({"phase": "timing", "kernel": "flash_attention autoint", "shape": [b, h, s, d],
+          "causal": False, "mask": None, "dtype": "f32", **t})
+    res["flash_attention autoint"] = t
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1820,11 +2187,18 @@ def main() -> int:
                              f"not above random {yt_after['random_recall@10']}")
     del yt_fitted
     timing.update(phase_youtube_timing(rng, dev, yt_test["hist"], ni))
+    worst.update(phase_ctr_check(rng, dev))
+    ctr_serve = phase_ctr_serve(rng, dev)
+    ctr_steps = phase_ctr_train_step(rng, dev)
+    ctr_protocol = phase_ctr_protocol(dev)
+    timing.update(phase_ctr_timing(rng, dev))
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
         "dot_interaction": (csrc + "dot_interaction.cu",
                             "recsys_tpu/kernels/pallas/interactions_tpu.py:84"),
+        "fm_pairwise_vector": (csrc + "fm_interaction.cu",
+                               "recsys_tpu/kernels/pallas/interactions_tpu.py:35"),
         "mlp_fwd": (csrc + "mlp_fwd.cu", "recsys_tpu/kernels/pallas/mlp_tpu.py:112"),
         "mlp_bwd": (csrc + "mlp_bwd.cu", "recsys_tpu/kernels/pallas/mlp_tpu.py:134"),
         "embedding_adam": (csrc + "embedding_update.cu",
@@ -1841,7 +2215,8 @@ def main() -> int:
     }
     kernels = []
     runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli,
-            yt_serve, yt_fit, yt_after]
+            yt_serve, yt_fit, yt_after, *ctr_serve.values(), *ctr_steps.values(),
+            ctr_protocol]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

@@ -1,7 +1,7 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
-``params`` is the flax ``params`` tree of a JAX model (DLRM, SASRec,
-YoutubeDNN) as
+``params`` is the flax ``params`` tree of a JAX model (the CTR models,
+SASRec, YoutubeDNN) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
@@ -155,4 +155,67 @@ def youtube_dnn_params_from_jax(params: dict, model) -> dict:
     state = _unpack_tables(params["user_table"], model.schema, None, "user_table.")
     state["item_table"] = _tensor(params["item_table"])
     state.update(_tower("user_mlp", params["user_mlp"], model.user_mlp))
+    return state
+
+
+def _unpack_sparse_linear(tree: dict, schema: FeatureSchema, prefix: str,
+                          num_groups: int | None = None) -> dict:
+    """A JAX ``SparseLinear``'s row-packed ``w_g``, each ``(_pad8(ceil(V_g /
+    p)), p)`` with ``p = pack_factor(1, V_g)``, -> the logical ``(V_g, 1)``
+    ``{prefix}w_g``."""
+    _, _, group_vocab = group_assignment(schema, num_groups)
+    state = {}
+    for g, v in enumerate(group_vocab):
+        packed = np.asarray(tree[f"w_{g}"])
+        p = pack_factor(1, v)
+        want = (_pad8(-(-max(v, 1) // p)), p)
+        if packed.shape != want:
+            raise ValueError(f"w_{g}: shape {packed.shape}, expected {want}")
+        state[f"{prefix}w_{g}"] = _tensor(packed.reshape(-1, 1)[:max(v, 1)])
+    return state
+
+
+def ctr_params_from_jax(params: dict, model) -> dict:
+    """JAX CTR model params (FM, DeepFM, WideDeep, DeepCrossing, DCN,
+    AutoInt, DLRM) -> the port model's state dict.
+
+    The flax submodules map onto the port's attributes:
+    ``StackedEmbedding_0`` -> ``embedding`` (tables unpacked),
+    ``SparseLinear_0`` -> ``linear`` (weights unpacked), ``MLP_0`` ->
+    ``mlp``, ``Dense_0`` -> ``out``, ``LinearLogit_0`` -> ``wide``,
+    ``CrossNetwork_0`` -> ``cross``, ``ResidualUnit_i`` -> ``residual.i``
+    and ``MultiHeadAttention_i`` -> ``attention.i``; the leaves ``bias``,
+    ``v_dense`` and ``w_dense`` keep their names.  DLRM goes through
+    :func:`params_from_jax`."""
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+
+    if isinstance(model, DLRM):
+        return params_from_jax(params, model.schema, model)
+    state = {}
+    for name, tree in params.items():
+        kind, _, index = name.rpartition("_")
+        if name == "StackedEmbedding_0":
+            state.update(_unpack_tables(tree, model.schema,
+                                        len(model.embedding.group_vocab), "embedding."))
+        elif name == "SparseLinear_0":
+            state.update(_unpack_sparse_linear(tree, model.schema, "linear."))
+        elif name == "MLP_0":
+            state.update(_tower("mlp", tree, model.mlp))
+        elif name == "Dense_0":
+            state.update({f"out.{k}": v for k, v in _dense(tree).items()})
+        elif name == "LinearLogit_0":
+            state.update({f"wide.dense.{k}": v for k, v in _dense(tree["Dense_0"]).items()})
+        elif name == "CrossNetwork_0":
+            state.update({f"cross.{k}": _tensor(v) for k, v in tree.items()})
+        elif kind == "ResidualUnit":
+            for j in (0, 1):
+                state.update({f"residual.{index}.dense{j}.{k}": v
+                              for k, v in _dense(tree[f"Dense_{j}"]).items()})
+        elif kind == "MultiHeadAttention":
+            state.update({f"attention.{index}.{k}": v
+                          for k, v in attention_from_jax(tree).items()})
+        elif name in ("bias", "v_dense", "w_dense"):
+            state[name] = _tensor(tree)
+        else:
+            raise ValueError(f"no counterpart in the port for the flax params {name!r}")
     return state

@@ -32,6 +32,9 @@ SIGNATURES = {
         "dot_interaction_tile": (_I, [_I, _I, _I]),
         "dot_interaction_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     },
+    "fm_interaction": {
+        "fm_pairwise_vector_launch": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    },
     "mlp_fwd": {
         "mlp_fwd_smem_bytes": (ctypes.c_longlong, [_P, _I, _I]),
         "mlp_fwd_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),

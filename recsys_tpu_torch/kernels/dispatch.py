@@ -6,10 +6,11 @@ failed launch to the plain path.
 integers, incremented only where a kernel is launched), so a run can show
 that its main path went through the kernels.
 
-``DotInteraction``, ``FusedMLPFunction``, ``FlashAttention`` and
-``SegmentSumGather`` are the autograd functions the model layers call: their
-forwards are the forward kernels; the dot interaction's and the pooled
-gather's backwards are torch ops (the JAX package leaves them to XLA), the
+``DotInteraction``, ``FMPairwiseVector``, ``FusedMLPFunction``,
+``FlashAttention`` and ``SegmentSumGather`` are the autograd functions the
+model layers call: their forwards are the forward kernels; the dot
+interaction's, the FM bi-interaction's and the pooled gather's backwards are
+torch ops (the JAX package leaves them to XLA), the
 fused MLP's backward is the ``mlp_bwd`` kernel and the attention's the
 ``flash_attention_bwd`` kernels.  ``topk_scores_fused`` (retrieval) has no
 gradient.
@@ -30,7 +31,7 @@ from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.kernels import mlp as mlp_ref
 from recsys_tpu_torch.kernels import topk as topk_ref
 
-LAUNCHES = {"dot_interaction": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+LAUNCHES = {"dot_interaction": 0, "fm_pairwise_vector": 0, "mlp_fwd": 0, "mlp_bwd": 0,
             "embedding_adam": 0, "embedding_rowwise_adagrad": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
             "pooled_gather": 0, "topk_scores": 0}
@@ -79,6 +80,33 @@ def dot_interaction(x: torch.Tensor, self_interaction: bool = False) -> torch.Te
         )
     build.check(rc, "dot_interaction")
     LAUNCHES["dot_interaction"] += 1
+    return out
+
+
+def fm_pairwise_vector_fused(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) f32 or bf16 -> (B, D) f32 bi-interaction pooling
+    0.5·((Σ_f x)² − Σ_f x²), f32 sums; see ``kernels/interactions.py``.  The
+    kernel takes every F ≥ 1 and D ≥ 1."""
+    if x.dim() != 3 or x.shape[1] < 1 or x.shape[2] < 1:
+        raise ValueError(f"fm_pairwise_vector: expected (B, F, D) with F, D >= 1, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fm_pairwise_vector: dtype {x.dtype} not f32 or bf16")
+    if x.device.type == "cpu":
+        return int_ref.fm_pairwise_vector(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fm_pairwise_vector: no kernel for device {x.device}")
+    _check_cuda("fm_pairwise_vector", [x], x.device)
+    b, f, d = x.shape
+    out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = build.libraries()["fm_interaction"].fm_pairwise_vector_launch(
+            x.data_ptr(), out.data_ptr(), b, f, d, int(x.dtype == torch.bfloat16),
+            _stream(x))
+    build.check(rc, "fm_pairwise_vector")
+    LAUNCHES["fm_pairwise_vector"] += 1
     return out
 
 
@@ -489,6 +517,39 @@ class DotInteraction(torch.autograd.Function):
         sel = _dot_sel(f, ctx.self_interaction, g.device).to(g.dtype)
         sym = (g @ sel).reshape(b, f, f)
         return torch.bmm(sym, x.float()).to(x.dtype), None
+
+
+class FMPairwiseVector(torch.autograd.Function):
+    """The FM bi-interaction with a gradient: the forward is the kernel (or
+    the plain version on a CPU tensor), cast to x's dtype as the JAX
+    package's ``_fm_vec_pallas``; the backward is its ``_fm_bwd`` in torch
+    ops, ``dx = g[:, None, :] · (Σ_f x − x)``, cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return fm_pairwise_vector_fused(x.contiguous()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        return (g.float()[:, None, :] * (xf.sum(dim=1, keepdim=True) - xf)).to(x.dtype)
+
+
+def fm_pairwise_vector(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) -> (B, D) in x's dtype, differentiable: the bi-interaction
+    kernel on a CUDA tensor, the plain version on a CPU tensor.  The JAX
+    package runs its Pallas kernel here only when asked
+    (``RECSYS_TPU_PALLAS_INTERACTIONS``); the port always takes its kernel,
+    as it does for the dot interaction (ROADMAP Queue 3)."""
+    return FMPairwiseVector.apply(x)
+
+
+def fm_pairwise(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) -> (B,): the FM second-order term, the bi-interaction
+    summed over D."""
+    return fm_pairwise_vector(x).sum(dim=-1)
 
 
 class FusedMLPFunction(torch.autograd.Function):

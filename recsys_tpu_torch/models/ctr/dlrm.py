@@ -20,9 +20,9 @@ import torch
 from torch import nn
 
 from recsys_tpu_torch.core.features import FeatureSchema
-from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels.interactions import num_pairs
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
+from recsys_tpu_torch.ops.interactions import DotInteraction
 from recsys_tpu_torch.ops.mlp import MLP, FusedMLP
 
 
@@ -49,6 +49,7 @@ class DLRM(nn.Module):
         super().__init__()
         self.schema = schema
         self.self_interaction = self_interaction
+        self.interaction = DotInteraction(self_interaction)
         self.compute_dtype = compute_dtype
         self.dense_microbatch = dense_microbatch
         d = schema.embed_dim
@@ -73,7 +74,7 @@ class DLRM(nn.Module):
         if self.has_dense:
             bottom = self.bottom(dense)
             feats = torch.cat([bottom[:, None, :].to(field_embs.dtype), field_embs], dim=1)
-        inter = dispatch.DotInteraction.apply(feats.contiguous(), self.self_interaction)
+        inter = self.interaction(feats)
         top_in = inter if bottom is None else torch.cat(
             [bottom.to(inter.dtype), inter], dim=-1
         )

@@ -45,6 +45,27 @@ def group_assignment(schema: FeatureSchema, num_groups: int | None):
     return group_of, offset_in, group_vocab
 
 
+def register_group_columns(module: nn.Module, schema: FeatureSchema, group_of: dict,
+                           offset_in: dict, device=None) -> dict[int, list[int]]:
+    """Register on ``module``, for each group table that serves sparse
+    columns, the buffers ``cols_{g}`` (the id columns it serves) and
+    ``offs_{g}`` (their offsets in it); returns {g: columns}."""
+    by_group: dict[int, list[int]] = {}
+    for j, f in enumerate(schema.sparse):
+        by_group.setdefault(group_of[f.name], []).append(j)
+    for g, js in by_group.items():
+        offs = [offset_in[schema.sparse[j].name] for j in js]
+        module.register_buffer(f"cols_{g}", torch.tensor(js, device=device), persistent=False)
+        module.register_buffer(f"offs_{g}", torch.tensor(offs, device=device), persistent=False)
+    return by_group
+
+
+def group_rows(module: nn.Module, g: int, sparse_ids: torch.Tensor) -> torch.Tensor:
+    """(B, F) field-local ids -> the (B, F_g) rows of group table ``g``."""
+    rows = sparse_ids.index_select(1, getattr(module, f"cols_{g}")).long()
+    return rows + getattr(module, f"offs_{g}")
+
+
 class StackedEmbedding(nn.Module):
     """Grouped embedding tables behind a stacked-offset API.
 
@@ -81,18 +102,8 @@ class StackedEmbedding(nn.Module):
             # uniform(-0.05, 0.05), the Keras Embedding default
             t = torch.empty((max(v, 1), d), dtype=param_dtype, device=device)
             self.register_parameter(f"table_{g}", nn.Parameter(t.uniform_(-0.05, 0.05)))
-        # per group: which id columns it serves and their offsets in it
-        by_group: dict[int, list[int]] = {}
-        for j, f in enumerate(schema.sparse):
-            by_group.setdefault(group_of[f.name], []).append(j)
+        by_group = register_group_columns(self, schema, group_of, offset_in, device)
         self._groups = sorted(by_group)
-        for g in self._groups:
-            js = by_group[g]
-            offs = [offset_in[schema.sparse[j].name] for j in js]
-            self.register_buffer(f"cols_{g}", torch.tensor(js, device=device),
-                                 persistent=False)
-            self.register_buffer(f"offs_{g}", torch.tensor(offs, device=device),
-                                 persistent=False)
         # output position of each group's columns, to undo the grouping
         order = np.concatenate([by_group[g] for g in self._groups] or [np.zeros(0, int)])
         self._in_order = bool((order == np.arange(len(order))).all())
@@ -148,9 +159,39 @@ class StackedEmbedding(nn.Module):
                                dtype=self.table(0).dtype, device=sparse_ids.device)
         parts = []
         for g in self._groups:
-            rows = sparse_ids.index_select(1, getattr(self, f"cols_{g}")).long()
-            rows = rows + getattr(self, f"offs_{g}")
+            rows = group_rows(self, g, sparse_ids)
             emb = self.table(g).index_select(0, rows.reshape(-1))
             parts.append(emb.reshape(*rows.shape, -1))
         out = torch.cat(parts, dim=1)
         return out if self._in_order else out.index_select(1, self.unperm)
+
+
+class SparseLinear(nn.Module):
+    """Per-id first-order weights: ``Σ_f w[id_f]`` over a batch's sparse ids,
+    the FM first-order term of one-hot categorical inputs without the
+    one-hot.  Grouped like ``StackedEmbedding`` (default one group per
+    field): group ``g``'s weights are the parameter ``w_{g}``, a LOGICAL
+    ``(V_g, 1)`` table (the JAX package packs them 128 to a physical row;
+    ``convert`` unpacks), read with plain gathers.  Initialised to zero.
+
+    ``forward`` takes (B, F) field-local ids ordered like ``schema.sparse``
+    and returns (B,) f32."""
+
+    def __init__(self, schema: FeatureSchema, num_groups: int | None = None, device=None):
+        super().__init__()
+        group_of, offset_in, group_vocab = group_assignment(schema, num_groups)
+        self.group_vocab = list(group_vocab)
+        for g, v in enumerate(group_vocab):
+            self.register_parameter(
+                f"w_{g}", nn.Parameter(torch.zeros((max(v, 1), 1), device=device)))
+        self._groups = sorted(register_group_columns(self, schema, group_of, offset_in, device))
+
+    def forward(self, sparse_ids: torch.Tensor) -> torch.Tensor:
+        parts = []
+        for g in self._groups:
+            rows = group_rows(self, g, sparse_ids)
+            w = getattr(self, f"w_{g}")
+            parts.append(w.index_select(0, rows.reshape(-1)).reshape(rows.shape))
+        if not parts:
+            return torch.zeros(sparse_ids.shape[0], device=sparse_ids.device)
+        return torch.cat(parts, dim=1).sum(dim=1)

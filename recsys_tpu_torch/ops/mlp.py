@@ -13,11 +13,24 @@ from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.ops.attention import Dropout
 
 
+def dense_init_(linear: nn.Linear) -> nn.Linear:
+    """Initialise ``linear`` as a flax ``Dense``: the weight lecun-normal
+    (a normal of variance 1/fan_in truncated at two standard deviations),
+    the bias zero."""
+    std = math.sqrt(1.0 / linear.in_features) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(linear.weight, 0.0, std, -2.0 * std, 2.0 * std)
+        if linear.bias is not None:
+            linear.bias.zero_()
+    return linear
+
+
 class MLP(nn.Module):
-    """Relu ``Linear`` stack; ``out_dim`` (if set) appends a final linear
-    layer with no activation.  ``dtype`` is the COMPUTE dtype (params stay
-    f32): as a flax ``Dense(dtype=bf16)``, each layer rounds its input,
-    weight and bias to it.  ``None`` computes in the promoted input type.
+    """Relu ``Linear`` stack, initialised as flax's ``Dense`` layers;
+    ``out_dim`` (if set) appends a final linear layer with no activation.
+    ``dtype`` is the COMPUTE dtype (params stay f32): as a flax
+    ``Dense(dtype=bf16)``, each layer rounds its input, weight and bias to
+    it.  ``None`` computes in the promoted input type.
     ``dropout_rate`` > 0 drops after every hidden activation in training
     (``ops.attention.Dropout``, on the generator ``Trainer`` gives it)."""
 
@@ -27,7 +40,7 @@ class MLP(nn.Module):
         super().__init__()
         dims = [in_dim, *hidden_units] + ([out_dim] if out_dim is not None else [])
         self.layers = nn.ModuleList(
-            nn.Linear(a, b, device=device) for a, b in zip(dims, dims[1:])
+            dense_init_(nn.Linear(a, b, device=device)) for a, b in zip(dims, dims[1:])
         )
         self.num_hidden = len(hidden_units)
         self.dtype = dtype

@@ -182,14 +182,22 @@ class Trainer:
 
     def fit(self, train_data: dict, batch_size: int = 512, epochs: int = 10,
             val_data: dict | None = None, validation_split: float = 0.0,
-            verbose: bool = True) -> dict:
+            early_stopping_patience: int | None = None, verbose: bool = True) -> dict:
         """Train on a dict of aligned numpy arrays (with the label key).
 
         Each epoch reshuffles (a numpy generator seeded by ``seed``) and
         drops the remainder; a batch larger than the data is clamped to it.
         ``validation_split`` holds out the dataset's tail when ``val_data``
         is not given.  The loss adds up on the device and is read once per
-        epoch.  Returns ``{'loss': [...], 'val_loss': [...]}``."""
+        epoch.  Returns ``{'loss': [...], 'val_loss': [...]}``.
+
+        With validation data, an epoch whose validation loss falls below the
+        best by more than 1e-6 keeps a copy of the model's parameters and
+        buffers on the device; training stops once
+        ``early_stopping_patience`` epochs in a row have not improved, and
+        the best copy is loaded back at the end (also without early
+        stopping), as in the JAX package.  The optimizer state and
+        ``self.step`` go on from the last step."""
         if validation_split > 0.0 and val_data is None:
             cut = int(_num_examples(train_data) * (1.0 - validation_split))
             val_data = {k: v[cut:] for k, v in train_data.items()}
@@ -199,6 +207,7 @@ class Trainer:
             raise ValueError("empty training dataset")
         batch_size = min(batch_size, n)
         history = {"loss": [], "val_loss": []}
+        best_val, best_state, bad_epochs = np.inf, None, 0
         for epoch in range(epochs):
             order = np.arange(n)
             self._shuffle_rng.shuffle(order)
@@ -211,10 +220,23 @@ class Trainer:
             history["loss"].append(float(total) / count)
             msg = f"epoch {epoch + 1}/{epochs} loss={history['loss'][-1]:.5f}"
             if val_data is not None:
-                history["val_loss"].append(self.evaluate_loss(val_data, batch_size))
-                msg += f" val_loss={history['val_loss'][-1]:.5f}"
+                val_loss = self.evaluate_loss(val_data, batch_size)
+                history["val_loss"].append(val_loss)
+                msg += f" val_loss={val_loss:.5f}"
+                if val_loss < best_val - 1e-6:
+                    best_val, bad_epochs = val_loss, 0
+                    # copies, not views: the optimizers go on updating the
+                    # live tensors in place
+                    best_state = {k: v.detach().clone()
+                                  for k, v in self.model.state_dict().items()}
+                else:
+                    bad_epochs += 1
             if verbose:
                 print(msg)
+            if early_stopping_patience is not None and bad_epochs >= early_stopping_patience:
+                break
+        if best_state is not None:
+            self.model.load_state_dict(best_state)
         return history
 
     def evaluate_loss(self, data: dict, batch_size: int = 4096) -> float:

@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the same inputs, a small DLRM, SASRec and YoutubeDNN served on
-the card against the same model on the CPU, and one training step of each
-on the card against the same step on the CPU.  They skip inside a fixture
+version on the same inputs, a small DLRM, SASRec, YoutubeDNN and the CTR
+protocol models served on the card against the same model on the CPU, and
+one training step of each on the card against the same step on the CPU.  They skip inside a fixture
 when there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import ctr_check
 import flash_check
 import mlp_bwd_check
 import retrieval_check
@@ -27,6 +28,7 @@ from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.tools.protocol import CTR_MODELS, ctr_model_kwargs
 from recsys_tpu_torch.train.losses import in_batch_sampled_softmax, pairwise_bce
 from recsys_tpu_torch.train.loop import Trainer
 from recsys_tpu_torch.train.retrieval import topk_scores
@@ -495,3 +497,92 @@ def test_youtube_train_step_on_card_matches_cpu(cuda):
         # a first Adam step moves a cell by about lr·sign(g): a g within the
         # sum order's noise of zero may move the other way
         assert ((got_sd[name].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, name
+
+
+# -- FM bi-interaction and the CTR protocol models ----------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ctr_check.WIDTHS)
+@pytest.mark.parametrize("f", ctr_check.FIELDS)
+def test_fm_kernel_matches_plain(cuda, dtype, d, f):
+    rng = np.random.default_rng(19)
+    for b in ctr_check.BATCHES:
+        x = ctr_check.inputs(rng, b, f, d, dtype, "normal", cuda)
+        before = dispatch.LAUNCHES["fm_pairwise_vector"]
+        res = ctr_check.check(dispatch.fm_pairwise_vector_fused, x)
+        torch.cuda.synchronize()
+        assert dispatch.LAUNCHES["fm_pairwise_vector"] == before + (b > 0)
+        assert res["excess"] <= 1.0, (b, res)
+        assert res.get("wrong_least_excess", 2.0) > 1.0, (b, res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_kernel_on_cancelling_inputs_and_views(cuda, dtype):
+    x = ctr_check.inputs(np.random.default_rng(20), 4096, 39, 16, dtype, "cancelling", cuda)
+    res = ctr_check.check(dispatch.fm_pairwise_vector_fused, x)
+    assert res["excess"] <= 1.0 < res["wrong_least_excess"], res
+    # an input that is not 16-byte aligned takes the one-value path
+    x = ctr_check.inputs(np.random.default_rng(21), 513, 26, 16, dtype, "normal", cuda)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert ctr_check.check(dispatch.fm_pairwise_vector_fused, shifted)["excess"] <= 1.0
+
+
+def test_fm_gradient_on_card_matches_cpu(cuda):
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (512, 26, 16)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(23).standard_normal((512,)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        (dispatch.fm_pairwise(xd) * g.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5)
+
+
+def _ctr_schema_and_data(n, seed):
+    schema, data = synthetic_ctr(num_examples=n, num_dense=13, num_sparse=26,
+                                 vocab_size=5000, embed_dim=16, seed=seed)
+    return schema, data
+
+
+@pytest.mark.parametrize("name", list(CTR_MODELS))
+def test_ctr_model_predict_on_card_matches_cpu(cuda, name):
+    schema, data = _ctr_schema_and_data(1000, 24)
+    torch.manual_seed(0)
+    model = CTR_MODELS[name](schema, **ctr_model_kwargs(name))
+    want = Trainer(model, device="cpu").predict(data, batch_size=512)
+    dispatch.reset_launches()
+    got = Trainer(model).predict(data, batch_size=512)
+    launches = {"fm": "fm_pairwise_vector", "deepfm": "fm_pairwise_vector",
+                "dlrm": "dot_interaction", "autoint": "flash_attention_fwd"}
+    expected = dict.fromkeys(dispatch.LAUNCHES, 0)
+    if name in launches:  # two batches, the last padded; three layers in AutoInt
+        expected[launches[name]] = 6 if name == "autoint" else 2
+    assert dispatch.LAUNCHES == expected
+    # f32 sums in another order; DLRM computes in bf16 (tests/test_torch_dlrm.py)
+    tol = dict(rtol=1e-2, atol=2e-3) if name == "dlrm" else dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("name", ["fm", "deepfm", "autoint"])
+def test_ctr_train_step_on_card_matches_cpu(cuda, name):
+    schema, data = _ctr_schema_and_data(512, 25)
+    torch.manual_seed(0)
+    model = CTR_MODELS[name](schema)
+    cpu = Trainer(copy.deepcopy(model), device="cpu")
+    card = Trainer(model)
+    dispatch.reset_launches()
+    loss = card.train_step(data)
+    torch.cuda.synchronize()
+    kernels = {"fm_pairwise_vector": 1} if name != "autoint" else \
+        {"flash_attention_fwd": 3, "flash_attention_bwd": 3}
+    assert dispatch.LAUNCHES == {**dict.fromkeys(dispatch.LAUNCHES, 0), **kernels}
+    want = cpu.train_step(data)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)
+    got_sd, want_sd = card.model.state_dict(), cpu.model.state_dict()
+    for key, w in want_sd.items():
+        # a first Adam step moves a cell by about lr·sign(g): a g within the
+        # sum order's noise of zero may move the other way
+        assert ((got_sd[key].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, key

@@ -118,7 +118,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "recsys_tpu_torch.kernels.embedding_update, mlp_bwd_check, "
             "recsys_tpu_torch.models.match.sasrec, recsys_tpu_torch.ops.attention, "
             "recsys_tpu_torch.kernels.attention, recsys_tpu_torch.data.movielens, "
-            "flash_check; "
+            "recsys_tpu_torch.tools.protocol, recsys_tpu_torch.ops.interactions, "
+            "flash_check, ctr_check; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu')]; print(bad); sys.exit(bool(bad))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -130,7 +131,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|recsys_tpu)(\.|\s|$)", re.M)
     files = [*sorted((REPO / "recsys_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
-             REPO / "mlp_bwd_check.py", REPO / "flash_check.py", REPO / "retrieval_check.py"]
+             REPO / "mlp_bwd_check.py", REPO / "flash_check.py", REPO / "retrieval_check.py",
+             REPO / "ctr_check.py"]
     assert REPO / "recsys_tpu_torch" / "models" / "match" / "youtube_dnn.py" in files
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
@@ -141,7 +143,8 @@ def test_every_kernel_source_has_a_bound_c_interface(monkeypatch, tmp_path):
 
     stems = {p.stem for p in build.CSRC.glob("*.cu")}
     assert stems == set(build.SIGNATURES)
-    assert {"flash_attention_fwd", "flash_attention_bwd", "pooled_gather", "topk_scores"} <= stems
+    assert {"flash_attention_fwd", "flash_attention_bwd", "pooled_gather", "topk_scores",
+            "fm_interaction"} <= stems
     # one launch count per kernel entry point
     launchers = {fn.removesuffix("_launch") for sig in build.SIGNATURES.values()
                  for fn in sig if fn.endswith("_launch")}
