@@ -101,7 +101,20 @@ checkout.  Phases, one JSON line each:
 21. ctr timing -- kernel, plain and bound ms of the bi-interaction at FM's
                 and DeepFM's serving shapes; the flash kernels beside torch
                 SDPA at AutoInt's (4096, 2, 39, 8).
-22. kernels  -- one line naming every kernel with its launches and times.
+22. probe check -- the three probe kernels (elementwise Adam stream, per-row
+                walk, hot gather) against their plain versions bit for bit
+                (probe_check.py): ragged, bench-table and misaligned Adam
+                counts from two states; walks of 8192, 1000 and 777 rows;
+                the hot gather at pack 1, 2 and 8 with sentinel and negative
+                ids, past 48 KB of shared memory, and its refusal of a 256 KB
+                buffer; each limit shown to reject wrong results.
+23. probes   -- stream_probe, gather_split_probe (Zipf(1.1), then uniform)
+                and dedup_probe at the bench shapes, each printing its JSON
+                line; launch counts zeroed before and read after; the split
+                gather must be exact.
+24. probe timing -- kernel, plain, library and bound ms of the three probe
+                kernels at the probes' shapes.
+25. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits non-zero; with no card it exits non-zero before any phase.
@@ -121,6 +134,8 @@ from pathlib import Path
 
 import numpy as np
 
+from recsys_tpu_torch.tools.roofline import cuda_ms  # imports torch only when called
+
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16 tensor
@@ -128,7 +143,6 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
-SLEEP_CYCLES_PER_S = 2.0e9  # at least the SM clock (H100 boost ~1.98 GHz)
 
 BATCH = 16384          # one request, the bench batch
 MICROBATCH = 4         # dense_microbatch: 4096-row slices reach the kernels
@@ -248,34 +262,6 @@ CTR_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device ms per call from CUDA events around `iters` calls.
-
-    A small kernel runs faster than Python can launch it, so events around
-    back-to-back calls would time the host.  A sleep kernel first holds
-    the device for longer than the host takes to enqueue the calls, and
-    the events then time the calls' device work alone."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * enqueue_s * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def errors(got, want) -> dict:
@@ -2141,6 +2127,165 @@ def phase_ctr_timing(rng, dev) -> dict:
     return res
 
 
+# -- the single-card probes ----------------------------------------------------
+PROBE_ITERS = 30
+PROBE_HOT = 1024         # the probes' hot rows a table
+PROBE_ZIPF = 1.1
+
+
+def phase_probe_check(rng, dev) -> dict:
+    """The three probe kernels against their plain versions (probe_check.py),
+    bit for bit, each limit shown to reject its wrong results; the hot
+    gather refuses a buffer past the shared-memory limit.  Returns the worst
+    abs error of each kernel."""
+    import torch
+
+    import probe_check
+    from recsys_tpu_torch.kernels import dispatch
+
+    runs = [("adam_stream", case, lambda a=args: probe_check.check_adam(
+                dispatch.adam_stream_step_, rng, *a, dev))
+            for case, args in probe_check.ADAM_CASES.items()]
+    runs += [("perrow_walk", case, lambda a=args: probe_check.check_perrow(
+                 dispatch.perrow_colsum, rng, *a, dev))
+             for case, args in probe_check.PERROW_CASES.items()]
+    runs += [("hot_gather", case, lambda a=args: probe_check.check_hot(
+                 dispatch.hot_gather, rng, *a, dev))
+             for case, args in probe_check.HOT_CASES.items()]
+    worst = dict.fromkeys(("adam_stream", "perrow_walk", "hot_gather"), 0.0)
+    for name, case, run in runs:
+        res = run()
+        torch.cuda.synchronize()
+        ok = probe_check.passed(res)
+        emit({"phase": "check", "case": f"{name} {case}", "limit": "bit-equal", **res, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {case}: the kernel is not bit-equal to its plain "
+                                 f"version, or a wrong result passes: {res}")
+        worst[name] = max(worst[name], res["max_abs_err"])
+    h, pack, d = probe_check.HOT_TOO_BIG
+    try:
+        dispatch.hot_gather(torch.zeros((h, pack * d), device=dev),
+                            torch.zeros(256, dtype=torch.int32, device=dev), pack)
+    except ValueError as e:
+        emit({"phase": "check", "case": "hot_gather refuses a 256 KB buffer", "error": str(e),
+              "ok": True})
+    else:
+        raise AssertionError("hot_gather: took a hot buffer past the shared-memory limit")
+    return worst
+
+
+def phase_probes(dev) -> dict:
+    """The probes at the bench shapes through their CLIs' entry points:
+    stream_probe, gather_split_probe (Zipf, then uniform) and dedup_probe,
+    each printing its JSON line.  Launch counts are zeroed before and read
+    after; every probe kernel must have launched, and the split gather must
+    be exact."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.tools import dedup_probe, gather_split_probe, stream_probe
+
+    iters = ["--iters", str(PROBE_ITERS)]
+    torch.cuda.synchronize()
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    stream = stream_probe.main(iters)
+    split = {dist: gather_split_probe.main(iters + ["--hot", str(PROBE_HOT), *flags])
+             for dist, flags in (("zipf", ["--zipf", str(PROBE_ZIPF)]),
+                                 ("uniform", ["--uniform"]))}
+    dedup = dedup_probe.main(iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    res = {"phase": "probes", "seconds": wall, "launches": launches,
+           "adam_stream_gb_s": {k: stream[k]["effective_gb_s"]
+                                for k in ("adam_stream_torch", "adam_stream_cuda")},
+           "random_gather_gb_s": stream["random_gather_26tables"]["effective_gb_s"],
+           "perrow_ns_per_row": stream["perrow_walk"]["ns_per_row"],
+           "split_speedup": {k: v["speedup"] for k, v in split.items()},
+           "split_max_abs_err": {k: v["max_abs_err"] for k, v in split.items()},
+           "dedup_chain_over_plain": dedup["dedup_chain_over_plain"]}
+    emit(res)
+    bad = {k: v for k, v in res["split_max_abs_err"].items() if v != 0.0}
+    if bad:
+        raise AssertionError(f"gather_split_probe: the split gather is not exact: {bad}")
+    missing = [k for k in ("adam_stream", "perrow_walk", "hot_gather") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"probes: kernels of the path never launched: {missing}")
+    return res
+
+
+def phase_probe_timing(rng, dev) -> dict:
+    """Kernel, plain, library and bound ms of the probe kernels at the
+    probes' shapes: the Adam stream per launch over one bench table, from a
+    pass over the 26 (library: torch's fused Adam, which adds bias
+    correction: the same traffic, other values), the per-row walk over (8192, 128) (library:
+    ``x.sum(0)``, in another order), the hot gather of one Zipf(1.1) table's
+    hot ids at H = 1024, d = 16, pack 1 (library: ``index_select`` of the
+    real ids from the hot buffer)."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import probes as probe_ref
+    from recsys_tpu_torch.tools import gather_split_probe as gsp
+
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    n_el = VOCAB * EMBED_DIM
+    ps = [torch.rand(n_el, generator=gen, device=dev) * 0.1 - 0.05 for _ in range(NUM_SPARSE)]
+    gs = [torch.randn(n_el, generator=gen, device=dev) * 1e-3 for _ in range(NUM_SPARSE)]
+    ms_, vs = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]
+    lib_ps = [p.clone().requires_grad_() for p in ps]
+    for p, g in zip(lib_ps, gs):
+        p.grad = g
+    fused = torch.optim.Adam(lib_ps, lr=probe_ref.ADAM["lr"], fused=True)
+
+    def run(step):
+        return lambda: [step(p, m, v, g) for p, m, v, g in zip(ps, ms_, vs, gs)]
+
+    # p, m, v read and written, g read: 28 bytes and about 10 flops an element
+    b_ms, b_by = bound(7 * 4 * n_el * NUM_SPARSE, 10.0 * n_el * NUM_SPARSE, F32_FLOPS)
+    passes = {"ms": cuda_ms(run(dispatch.adam_stream_step_), 20, 3),
+              "plain_ms": cuda_ms(run(probe_ref.adam_stream_step_), 10, 2),
+              "library_ms": cuda_ms(fused.step, 20, 3), "bound_ms": b_ms}
+    # per launch (one table), as every other kernel's times
+    t = {**{k: v / NUM_SPARSE for k, v in passes.items()},
+         "pass_ms": passes, "library": "torch.optim.Adam(fused=True)", "bound_by": b_by,
+         "shape": [VOCAB, EMBED_DIM], "per": "one table; a pass over the 26 is 26 launches"}
+    emit({"phase": "timing", "kernel": "adam_stream", **t})
+    res["adam_stream"] = t
+    del ps, gs, ms_, vs, lib_ps, fused
+
+    x = torch.randn((8192, 128), generator=gen, device=dev)
+    b_ms, b_by = bound(4 * (x.numel() + x.shape[1]), float(x.numel()), F32_FLOPS)
+    t = {"ms": cuda_ms(lambda: dispatch.perrow_colsum(x), 200, 10),
+         "plain_ms": cuda_ms(lambda: probe_ref.perrow_colsum(x), 3, 1),
+         "library_ms": cuda_ms(lambda: x.sum(0), 200, 10), "library": "x.sum(0)",
+         "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape)}
+    t["ns_per_row"] = t["ms"] * 1e6 / x.shape[0]
+    emit({"phase": "timing", "kernel": "perrow_walk", **t})
+    res["perrow_walk"] = t
+
+    ids = gsp._zipf_ids(rng, PROBE_ZIPF, BATCH, VOCAB)
+    hot_rows, hot_idx2d, _, _, n_hot, _ = gsp.host_split(ids, PROBE_HOT)
+    table = torch.rand((VOCAB, EMBED_DIM), generator=gen, device=dev) * 0.1 - 0.05
+    hot = table.index_select(0, torch.from_numpy(hot_rows).long().to(dev))
+    hot_ids = torch.from_numpy(hot_idx2d).to(dev)
+    real = hot_ids.reshape(-1)[:n_hot].long()
+    n = hot_ids.numel()
+    # the hot buffer and the ids read once, the (n, d) rows written once
+    b_ms, b_by = bound(4 * (hot.numel() + n + n * EMBED_DIM), 0.0, F32_FLOPS)
+    t = {"ms": cuda_ms(lambda: dispatch.hot_gather(hot, hot_ids, 1), 200, 10),
+         "plain_ms": cuda_ms(lambda: probe_ref.hot_gather(hot, hot_ids, 1), 200, 10),
+         "library_ms": cuda_ms(lambda: hot.index_select(0, real), 200, 10),
+         "library": "index_select of the real ids", "bound_ms": b_ms, "bound_by": b_by,
+         "shape": {"hot": list(hot.shape), "ids": list(hot_ids.shape), "n_hot": n_hot}}
+    emit({"phase": "timing", "kernel": "hot_gather", **t})
+    res["hot_gather"] = t
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2192,6 +2337,9 @@ def main() -> int:
     ctr_steps = phase_ctr_train_step(rng, dev)
     ctr_protocol = phase_ctr_protocol(dev)
     timing.update(phase_ctr_timing(rng, dev))
+    worst.update(phase_probe_check(rng, dev))
+    probes = phase_probes(dev)
+    timing.update(phase_probe_timing(rng, dev))
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -2212,11 +2360,14 @@ def main() -> int:
         "pooled_gather": (csrc + "pooled_gather.cu",
                           "recsys_tpu/kernels/pallas/embedding_tpu.py:76"),
         "topk_scores": (csrc + "topk_scores.cu", "recsys_tpu/kernels/pallas/topk_tpu.py:78"),
+        "adam_stream": (csrc + "adam_stream.cu", "recsys_tpu/tools/stream_probe.py:85"),
+        "perrow_walk": (csrc + "perrow_walk.cu", "recsys_tpu/tools/stream_probe.py:196"),
+        "hot_gather": (csrc + "hot_gather.cu", "recsys_tpu/tools/gather_split_probe.py:93"),
     }
     kernels = []
     runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli,
             yt_serve, yt_fit, yt_after, *ctr_serve.values(), *ctr_steps.values(),
-            ctr_protocol]
+            ctr_protocol, probes]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

@@ -1,0 +1,152 @@
+"""How the probe kernels are held against their plain versions, shared by
+chip_smoke.py and tests/test_torch_cuda.py (imports no JAX).
+
+All three limits are exact: the kernel's output must equal the plain
+version's bit for bit.
+* ``adam_stream`` (#11) rounds each operation once (round-to-nearest
+  intrinsics, no FMA contraction), as the plain version's separate torch
+  operations do; p, m and v must change in place and g must not.
+* ``perrow_walk`` (#12) adds the rows in the same serial order.
+* ``hot_gather`` (#13) copies f32 rows, and gives +0 for every id outside
+  [0, H·pack).
+Each limit must also reject wrong results: a stale m or an unmoved p; the
+sum without its last row; a row off by one or a sentinel gathered as a
+clamped row.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from recsys_tpu_torch.kernels import probes as probe_ref
+
+# name -> (n elements, the state, element offset of the views: 1 misaligns
+# them and takes the kernel's scalar path)
+ADAM_CASES = {
+    "ragged 1001x16, probe state": (1001 * 16, "probe", 0),
+    "ragged 1001x16, random state": (1001 * 16, "random", 0),
+    "one bench table 100000x16, probe state": (100_000 * 16, "probe", 0),
+    "one bench table 100000x16, random state": (100_000 * 16, "random", 0),
+    "misaligned 16015, random state": (1001 * 16 - 1, "random", 1),
+}
+# name -> (n rows, W, element offset of x): the probe's block, a count that
+# is not a whole number of 64 KB staged chunks, and the kernel's 4-byte
+# copies, taken for a width that is not a multiple of 4 and for an x that is
+# not 16-byte aligned
+PERROW_CASES = {"probe 8192x128": (8192, 128, 0), "ragged 1000x128": (1000, 128, 0),
+                "ragged 1000x130, 4-byte copies": (1000, 130, 0),
+                "misaligned 777x128, 4-byte copies": (777, 128, 1),
+                "one row 1x128": (1, 128, 0)}
+# name -> (H, pack, d, ids): the probe's pack 1 (64 KB, past 48 KB), the JAX
+# test's pack 8, a width with 4-byte copies, a 128 KB buffer
+HOT_CASES = {"pack 1 H=1024 d=16": (1024, 1, 16, 13_312),
+             "pack 8 H=128 d=16": (128, 8, 16, 2048),
+             "pack 1 H=64 d=5": (64, 1, 5, 1000),
+             "pack 2 H=1024 d=16": (1024, 2, 16, 4096)}
+HOT_TOO_BIG = (4096, 1, 16)  # 256 KB: beyond the H100's 227 KB
+
+
+def bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Same shape and the same f32 bit patterns."""
+    return got.shape == want.shape and torch.equal(
+        got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def _result(got: dict, want: dict, wrong: dict) -> dict:
+    """{'bit_equal', 'max_abs_err', 'wrong_rejected': {fault: rejected}} of
+    named outputs ``got`` against ``want``; ``wrong`` maps a fault to its
+    wrong outputs."""
+    def passes(out):
+        return all(bits_equal(out[k], want[k]) for k in want)
+
+    return {"bit_equal": passes(got),
+            "max_abs_err": max(max_abs_err(got[k], want[k]) for k in want),
+            "wrong_rejected": {name: not passes(out) for name, out in wrong.items()}}
+
+
+def adam_inputs(rng, n: int, state: str) -> list[np.ndarray]:
+    """p, m, v, g (n,) f32: the probe's state (m = v = 0, g ~ 1e-3) or a
+    random one."""
+    p = rng.uniform(-0.05, 0.05, n).astype(np.float32)
+    g = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    if state == "probe":
+        m, v = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    else:
+        m = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+        v = (rng.random(n) * 1e-6).astype(np.float32)
+    return [p, m, v, g]
+
+
+def check_adam(step, rng, n: int, state: str, offset: int, device) -> dict:
+    """``step(p, m, v, g)`` (in place) against the plain step on the same
+    inputs; the tensors are views ``offset`` elements into their storage."""
+    arrays = adam_inputs(rng, n + offset, state)
+    ts = [torch.from_numpy(a).to(device)[offset:] for a in arrays]
+    before = [t.clone() for t in ts]
+    ptrs = [t.data_ptr() for t in ts]
+    step(*ts)
+    p, m, v, g = (t.clone() for t in before)
+    probe_ref.adam_stream_step_(p, m, v, g)
+    want = {"p": p, "m": m, "v": v}
+    got = dict(zip("pmv", ts))
+    res = _result(got, want, {"stale m": {**want, "m": before[1]},
+                              "p not updated": {**want, "p": before[0]}})
+    res["in_place"] = [t.data_ptr() for t in ts] == ptrs and all(
+        not bits_equal(t, b) for t, b in zip(ts[:3], before[:3]))
+    res["g_unchanged"] = bits_equal(ts[3], before[3])
+    return res
+
+
+def check_perrow(colsum, rng, n: int, w: int, offset: int, device) -> dict:
+    """``colsum(x)`` on an (n, w) f32 block, ``offset`` elements into its
+    storage, against the serial plain sum."""
+    flat = rng.standard_normal(n * w + offset).astype(np.float32)
+    x = torch.from_numpy(flat).to(device)[offset:].view(n, w)
+    want = probe_ref.perrow_colsum(x)
+    wrong = probe_ref.perrow_colsum(x[:-1]) if n > 1 else torch.zeros_like(want)
+    return _result({"out": colsum(x)}, {"out": want},
+                   {"sum without the last row": {"out": wrong}})
+
+
+def hot_inputs(rng, h: int, pack: int, d: int, n: int, device):
+    """hot (H, pack·d) f32 and (ceil(n / 256), 256) int64 ids: hot slot ids
+    with, in every 16th place, a sentinel H·pack, a negative id or an id far
+    past the buffer (one beyond int32), and sentinel padding after the
+    n-th."""
+    hot = torch.from_numpy(rng.uniform(-1, 1, (h, pack * d)).astype(np.float32)).to(device)
+    rows = h * pack
+    ids = rng.integers(0, rows, n).astype(np.int64)
+    outside = np.array([rows, -1, -rows, rows + 7, -(2 ** 31), 2 ** 32 + 5], np.int64)
+    ids[::16] = outside[np.arange(len(ids[::16])) % len(outside)]
+    padded = np.full(-(-n // 256) * 256, rows, np.int64)
+    padded[:n] = ids
+    return hot, torch.from_numpy(padded.reshape(-1, 256)).to(device)
+
+
+def check_hot(gather, rng, h: int, pack: int, d: int, n: int, device) -> dict:
+    """``gather(hot, ids, pack)`` against the plain gather, on the int64 ids
+    and on them clamped into int32; ids outside [0, H·pack) must give zero
+    rows."""
+    hot, ids = hot_inputs(rng, h, pack, d, n, device)
+    ids32 = ids.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+    want = probe_ref.hot_gather(hot, ids, pack)
+    flat = ids.reshape(-1)
+    rows = h * pack
+    off_by_one = probe_ref.hot_gather(hot, torch.where((flat >= 0) & (flat < rows),
+                                                       (flat + 1) % rows, flat), pack)
+    clamped = hot.reshape(rows, d).index_select(0, flat.clamp(0, rows - 1))
+    return _result({"int64": gather(hot, ids, pack), "int32": gather(hot, ids32, pack)},
+                   {"int64": want, "int32": want},
+                   {"a row off by one": {"int64": off_by_one, "int32": off_by_one},
+                    "sentinels gathered as clamped rows": {"int64": clamped,
+                                                           "int32": clamped}})
+
+
+def passed(res: dict) -> bool:
+    """Every limit held and every wrong result rejected."""
+    return (res["bit_equal"] and all(res["wrong_rejected"].values())
+            and res.get("in_place", True) and res.get("g_unchanged", True))

@@ -63,6 +63,17 @@ SIGNATURES = {
         "topk_scores_plan": (_I, [_I, _I, _I, _I, _P]),
         "topk_scores_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     },
+    "adam_stream": {
+        "adam_stream_launch": (_I, [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _F, _F,
+                                    _F, _P]),
+    },
+    "perrow_walk": {
+        "perrow_walk_launch": (_I, [_P, _P, _I, _I, _P]),
+    },
+    "hot_gather": {
+        "hot_gather_smem_limit": (_I, []),
+        "hot_gather_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    },
     "flash_attention_bwd": {
         "flash_attention_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
         "flash_attention_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

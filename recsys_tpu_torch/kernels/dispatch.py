@@ -13,7 +13,9 @@ interaction's, the FM bi-interaction's and the pooled gather's backwards are
 torch ops (the JAX package leaves them to XLA), the
 fused MLP's backward is the ``mlp_bwd`` kernel and the attention's the
 ``flash_attention_bwd`` kernels.  ``topk_scores_fused`` (retrieval) has no
-gradient.
+gradient, nor have the probe kernels' wrappers ``adam_stream_step_``,
+``perrow_colsum`` and ``hot_gather`` (``tools/stream_probe.py``,
+``tools/gather_split_probe.py``).
 """
 from __future__ import annotations
 
@@ -29,12 +31,14 @@ from recsys_tpu_torch.kernels import embedding as gather_ref
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
 from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.kernels import mlp as mlp_ref
+from recsys_tpu_torch.kernels import probes as probe_ref
 from recsys_tpu_torch.kernels import topk as topk_ref
 
 LAUNCHES = {"dot_interaction": 0, "fm_pairwise_vector": 0, "mlp_fwd": 0, "mlp_bwd": 0,
             "embedding_adam": 0, "embedding_rowwise_adagrad": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "pooled_gather": 0, "topk_scores": 0}
+            "pooled_gather": 0, "topk_scores": 0,
+            "adam_stream": 0, "perrow_walk": 0, "hot_gather": 0}
 
 
 def reset_launches() -> None:
@@ -482,6 +486,91 @@ def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
     build.check(rc, "topk_scores_fused")
     LAUNCHES["topk_scores"] += 1
     return values, indices
+
+
+# -- the probe kernels --------------------------------------------------------
+def adam_stream_step_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor) -> None:
+    """Elementwise Adam with no bias correction and the probe's constants,
+    in place over p, m and v (f32, one shape), g read; see
+    ``kernels/probes.py``.  The kernel takes every count."""
+    ts = (p, m, v, g)
+    if any(t.dtype != torch.float32 or t.shape != p.shape for t in ts):
+        raise ValueError("adam_stream_step_: p, m, v and g must be f32 of one shape")
+    if p.device.type == "cpu":
+        return probe_ref.adam_stream_step_(p, m, v, g)
+    if p.device.type != "cuda":
+        raise ValueError(f"adam_stream_step_: no kernel for device {p.device}")
+    _check_cuda("adam_stream_step_", ts, p.device)
+    if p.numel() == 0:
+        return None
+    lr, b1, b2, eps = (probe_ref.ADAM[k] for k in ("lr", "b1", "b2", "eps"))
+    with torch.cuda.device(p.device):
+        rc = build.libraries()["adam_stream"].adam_stream_launch(
+            *(t.data_ptr() for t in ts), p.numel(), b1, 1.0 - b1, b2, 1.0 - b2, eps, lr,
+            _stream(p))
+    build.check(rc, "adam_stream_step_")
+    LAUNCHES["adam_stream"] += 1
+    return None
+
+
+def perrow_colsum(x: torch.Tensor) -> torch.Tensor:
+    """(n, W) f32 -> (1, W) f32, the column sums in serial row order; see
+    ``kernels/probes.py``.  The kernel takes W up to 1024."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"perrow_colsum: expected (n, W) f32, got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return probe_ref.perrow_colsum(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"perrow_colsum: no kernel for device {x.device}")
+    _check_cuda("perrow_colsum", [x], x.device)
+    n, w = x.shape
+    if not 1 <= w <= 1024:
+        raise ValueError(f"perrow_colsum: the kernel takes 1 <= W <= 1024, got W={w}")
+    out = torch.empty((1, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = build.libraries()["perrow_walk"].perrow_walk_launch(
+            x.data_ptr(), out.data_ptr(), n, w, _stream(x))
+    build.check(rc, "perrow_colsum")
+    LAUNCHES["perrow_walk"] += 1
+    return out
+
+
+def hot_gather(hot: torch.Tensor, ids: torch.Tensor, pack: int = 1) -> torch.Tensor:
+    """hot (H, pack·d) f32, integer ids (any shape) -> (ids.numel(), d) f32,
+    the rows of hot slot ids ``slot·pack + sub`` and a zero row for an id
+    outside [0, H·pack); see ``kernels/probes.py``.  The kernel holds the
+    whole buffer in shared memory and refuses one beyond the card's limit."""
+    if hot.dim() != 2 or hot.dtype != torch.float32 or pack < 1 or hot.shape[1] % pack:
+        raise ValueError(f"hot_gather: expected hot (H, pack*d) f32 with pack={pack}, got "
+                         f"{hot.dtype} {tuple(hot.shape)}")
+    if ids.is_floating_point():
+        raise ValueError(f"hot_gather: ids must be integers, got {ids.dtype}")
+    if hot.device.type == "cpu":
+        return probe_ref.hot_gather(hot, ids, pack)
+    if hot.device.type != "cuda":
+        raise ValueError(f"hot_gather: no kernel for device {hot.device}")
+    h, d = hot.shape[0], hot.shape[1] // pack
+    ids = ids.reshape(-1)
+    if ids.dtype != torch.int32:  # outside ids become the sentinel before the cast can wrap
+        ids = torch.where((ids >= 0) & (ids < h * pack), ids.long(), h * pack).to(torch.int32)
+    ids = ids.contiguous()
+    _check_cuda("hot_gather", [hot, ids], hot.device)
+    lib = build.libraries()["hot_gather"]
+    with torch.cuda.device(hot.device):
+        limit = lib.hot_gather_smem_limit()
+    if hot.numel() * 4 > limit:
+        raise ValueError(f"hot_gather: a {hot.numel() * 4}-byte hot buffer exceeds the "
+                         f"{limit} bytes of shared memory a block may have")
+    out = torch.empty((ids.numel(), d), dtype=torch.float32, device=hot.device)
+    if ids.numel() == 0:
+        return out
+    with torch.cuda.device(hot.device):
+        rc = lib.hot_gather_launch(hot.data_ptr(), ids.data_ptr(), out.data_ptr(), h, pack, d,
+                                   ids.numel(), _stream(hot))
+    build.check(rc, "hot_gather")
+    LAUNCHES["hot_gather"] += 1
+    return out
 
 
 # -- autograd ---------------------------------------------------------------

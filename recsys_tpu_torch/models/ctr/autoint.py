@@ -12,7 +12,7 @@ from torch import nn
 from recsys_tpu_torch.core.features import FeatureSchema
 from recsys_tpu_torch.ops.attention import Dropout, MultiHeadAttention
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
-from recsys_tpu_torch.ops.mlp import dense_init_
+from recsys_tpu_torch.ops.init import dense_init_
 
 
 class AutoInt(nn.Module):
@@ -33,9 +33,6 @@ class AutoInt(nn.Module):
         self.attention = nn.ModuleList(
             MultiHeadAttention(d, num_heads, use_residual=True, device=device)
             for _ in range(num_layers))
-        for layer in self.attention:  # flax Dense's init, as the JAX model's
-            for lin in (layer.wq, layer.wk, layer.wv):
-                dense_init_(lin)
         self.drops = nn.ModuleList(Dropout(dropout_rate) for _ in range(num_layers)) \
             if dropout_rate > 0 else None
         self.out = dense_init_(nn.Linear((schema.num_sparse + nd) * d, 1, device=device))

@@ -11,7 +11,8 @@ from torch import nn
 from recsys_tpu_torch.core.features import FeatureSchema
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
 from recsys_tpu_torch.ops.interactions import CrossNetwork
-from recsys_tpu_torch.ops.mlp import MLP, dense_init_
+from recsys_tpu_torch.ops.init import dense_init_
+from recsys_tpu_torch.ops.mlp import MLP
 
 
 class DCN(nn.Module):

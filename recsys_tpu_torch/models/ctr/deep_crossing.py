@@ -12,7 +12,7 @@ from recsys_tpu_torch.core.features import FeatureSchema
 from recsys_tpu_torch.ops.attention import Dropout
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
 from recsys_tpu_torch.ops.interactions import ResidualUnit
-from recsys_tpu_torch.ops.mlp import dense_init_
+from recsys_tpu_torch.ops.init import dense_init_
 
 
 class DeepCrossing(nn.Module):

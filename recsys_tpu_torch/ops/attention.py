@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.ops.init import dense_init_
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -69,11 +70,11 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.use_residual = use_residual
         self.causal = causal
-        self.wq = nn.Linear(in_dim, dim, bias=False, device=device)
-        self.wk = nn.Linear(in_dim, dim, bias=False, device=device)
-        self.wv = nn.Linear(in_dim, dim, bias=False, device=device)
-        self.wo = nn.Linear(dim, dim, device=device) if out_proj else None
-        self.wr = (nn.Linear(in_dim, dim, device=device)
+        self.wq = dense_init_(nn.Linear(in_dim, dim, bias=False, device=device))
+        self.wk = dense_init_(nn.Linear(in_dim, dim, bias=False, device=device))
+        self.wv = dense_init_(nn.Linear(in_dim, dim, bias=False, device=device))
+        self.wo = dense_init_(nn.Linear(dim, dim, device=device)) if out_proj else None
+        self.wr = (dense_init_(nn.Linear(in_dim, dim, device=device))
                    if use_residual and in_dim != dim else None)
 
     def forward(self, q_in: torch.Tensor, k_in: torch.Tensor | None = None,
@@ -118,8 +119,8 @@ class TransformerBlock(nn.Module):
                                        device=device)
         self.drop_attn = Dropout(dropout_rate)
         self.ln0 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS, device=device)
-        self.ffn0 = nn.Linear(dim, ffn_dim, device=device)
-        self.ffn1 = nn.Linear(ffn_dim, dim, device=device)
+        self.ffn0 = dense_init_(nn.Linear(dim, ffn_dim, device=device))
+        self.ffn1 = dense_init_(nn.Linear(ffn_dim, dim, device=device))
         self.drop_ffn = Dropout(dropout_rate)
         self.ln1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS, device=device)
 

@@ -99,9 +99,9 @@ class StackedEmbedding(nn.Module):
         self._group_of, self._offset_in = group_of, offset_in
         self.group_vocab = list(group_vocab)
         for g, v in enumerate(group_vocab):
-            # uniform(-0.05, 0.05), the Keras Embedding default
+            # U[0, 0.05): what flax's uniform(scale=0.05) in the JAX package draws
             t = torch.empty((max(v, 1), d), dtype=param_dtype, device=device)
-            self.register_parameter(f"table_{g}", nn.Parameter(t.uniform_(-0.05, 0.05)))
+            self.register_parameter(f"table_{g}", nn.Parameter(t.uniform_(0.0, 0.05)))
         by_group = register_group_columns(self, schema, group_of, offset_in, device)
         self._groups = sorted(by_group)
         # output position of each group's columns, to undo the grouping

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from recsys_tpu_torch.kernels import dispatch
-from recsys_tpu_torch.ops.mlp import dense_init_
+from recsys_tpu_torch.ops.init import dense_init_
 
 
 class FMInteraction(nn.Module):

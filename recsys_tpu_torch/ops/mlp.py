@@ -2,7 +2,6 @@
 ``FusedMLP`` (the whole relu stack in one fused CUDA kernel each way)."""
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -11,18 +10,7 @@ from torch import nn
 
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.ops.attention import Dropout
-
-
-def dense_init_(linear: nn.Linear) -> nn.Linear:
-    """Initialise ``linear`` as a flax ``Dense``: the weight lecun-normal
-    (a normal of variance 1/fan_in truncated at two standard deviations),
-    the bias zero."""
-    std = math.sqrt(1.0 / linear.in_features) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(linear.weight, 0.0, std, -2.0 * std, 2.0 * std)
-        if linear.bias is not None:
-            linear.bias.zero_()
-    return linear
+from recsys_tpu_torch.ops.init import dense_init_, lecun_normal_
 
 
 class MLP(nn.Module):
@@ -72,7 +60,7 @@ class FusedMLP(nn.Module):
         super().__init__()
         dims = [in_dim, *hidden_units, out_dim]
         for i, (a, b) in enumerate(zip(dims, dims[1:])):
-            w = torch.randn((a, b), device=device) / math.sqrt(a)  # lecun normal
+            w = lecun_normal_(torch.empty((a, b), device=device), a)
             self.register_parameter(f"kernel_{i}", nn.Parameter(w))
             self.register_parameter(f"bias_{i}",
                                     nn.Parameter(torch.zeros((1, b), device=device)))

@@ -1,5 +1,5 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the same inputs, a small DLRM, SASRec, YoutubeDNN and the CTR
+version on the same inputs (the probe kernels bit for bit, probe_check.py), a small DLRM, SASRec, YoutubeDNN and the CTR
 protocol models served on the card against the same model on the CPU, and
 one training step of each on the card against the same step on the CPU.  They skip inside a fixture
 when there is no card.
@@ -18,6 +18,7 @@ import torch
 import ctr_check
 import flash_check
 import mlp_bwd_check
+import probe_check
 import retrieval_check
 from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
@@ -586,3 +587,46 @@ def test_ctr_train_step_on_card_matches_cpu(cuda, name):
         # a first Adam step moves a cell by about lr·sign(g): a g within the
         # sum order's noise of zero may move the other way
         assert ((got_sd[key].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, key
+
+
+@pytest.mark.parametrize("case", list(probe_check.ADAM_CASES))
+def test_adam_stream_kernel_matches_plain_bit_for_bit(cuda, case):
+    n, state, offset = probe_check.ADAM_CASES[case]
+    dispatch.reset_launches()
+    res = probe_check.check_adam(dispatch.adam_stream_step_, np.random.default_rng(30), n, state,
+                                 offset, cuda)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["adam_stream"] == 1
+    assert probe_check.passed(res), res
+
+
+@pytest.mark.parametrize("case", list(probe_check.PERROW_CASES))
+def test_perrow_walk_kernel_matches_plain_bit_for_bit(cuda, case):
+    n, w, offset = probe_check.PERROW_CASES[case]
+    dispatch.reset_launches()
+    res = probe_check.check_perrow(dispatch.perrow_colsum, np.random.default_rng(31), n, w,
+                                   offset, cuda)
+    assert dispatch.LAUNCHES["perrow_walk"] == 1
+    assert probe_check.passed(res), res
+
+
+@pytest.mark.parametrize("case", list(probe_check.HOT_CASES))
+def test_hot_gather_kernel_matches_plain_bit_for_bit(cuda, case):
+    h, pack, d, n = probe_check.HOT_CASES[case]
+    dispatch.reset_launches()
+    res = probe_check.check_hot(dispatch.hot_gather, np.random.default_rng(32), h, pack, d, n,
+                                cuda)
+    assert dispatch.LAUNCHES["hot_gather"] == 2  # int64 ids, then int32
+    assert probe_check.passed(res), res
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(cuda):
+    h, pack, d = probe_check.HOT_TOO_BIG
+    with pytest.raises(ValueError, match="shared memory"):
+        dispatch.hot_gather(torch.zeros((h, pack * d), device=cuda),
+                            torch.zeros(256, dtype=torch.int32, device=cuda), pack)
+    with pytest.raises(ValueError, match="1024"):
+        dispatch.perrow_colsum(torch.zeros((4, 1025), device=cuda))
+    with pytest.raises(ValueError, match="f32 of one shape"):
+        dispatch.adam_stream_step_(*(torch.zeros(8, device=cuda) for _ in range(3)),
+                                   torch.zeros(9, device=cuda))

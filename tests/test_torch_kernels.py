@@ -119,7 +119,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "recsys_tpu_torch.models.match.sasrec, recsys_tpu_torch.ops.attention, "
             "recsys_tpu_torch.kernels.attention, recsys_tpu_torch.data.movielens, "
             "recsys_tpu_torch.tools.protocol, recsys_tpu_torch.ops.interactions, "
-            "flash_check, ctr_check; "
+            "flash_check, ctr_check, probe_check, recsys_tpu_torch.tools.stream_probe, "
+            "recsys_tpu_torch.tools.gather_split_probe, recsys_tpu_torch.tools.dedup_probe, "
+            "recsys_tpu_torch.tools.seed_stats, recsys_tpu_torch.ops.init; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu')]; print(bad); sys.exit(bool(bad))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -132,7 +134,7 @@ def test_port_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|recsys_tpu)(\.|\s|$)", re.M)
     files = [*sorted((REPO / "recsys_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
              REPO / "mlp_bwd_check.py", REPO / "flash_check.py", REPO / "retrieval_check.py",
-             REPO / "ctr_check.py"]
+             REPO / "ctr_check.py", REPO / "probe_check.py"]
     assert REPO / "recsys_tpu_torch" / "models" / "match" / "youtube_dnn.py" in files
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
