@@ -104,8 +104,10 @@ checkout.  Phases, one JSON line each:
 22. probe check -- the three probe kernels (elementwise Adam stream, per-row
                 walk, hot gather) against their plain versions bit for bit
                 (probe_check.py): ragged, bench-table and misaligned Adam
-                counts from two states; walks of 8192, 1000 and 777 rows;
-                the hot gather at pack 1, 2 and 8 with sentinel and negative
+                counts from two states, and passes of the 26 bench tables,
+                of unequal tables, with an empty table and of 40 tables,
+                each one launch for every 32 tables; walks of 1 to 100,000
+                rows and 1 to 1024 columns; the hot gather at pack 1, 2 and 8 with sentinel and negative
                 ids, past 48 KB of shared memory, and its refusal of a 256 KB
                 buffer; each limit shown to reject wrong results.
 23. probes   -- stream_probe, gather_split_probe (Zipf(1.1), then uniform)
@@ -113,7 +115,9 @@ checkout.  Phases, one JSON line each:
                 line; launch counts zeroed before and read after; the split
                 gather must be exact.
 24. probe timing -- kernel, plain, library and bound ms of the three probe
-                kernels at the probes' shapes.
+                kernels at the probes' shapes: the Adam pass over the 26
+                tables (one launch) in turns with torch's fused Adam, the
+                walk beside its add-chain floor.
 25. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
@@ -2143,9 +2147,15 @@ def phase_probe_check(rng, dev) -> dict:
     import probe_check
     from recsys_tpu_torch.kernels import dispatch
 
-    runs = [("adam_stream", case, lambda a=args: probe_check.check_adam(
-                dispatch.adam_stream_step_, rng, *a, dev))
-            for case, args in probe_check.ADAM_CASES.items()]
+    def adam_pass(tables):
+        dispatch.reset_launches()
+        res = probe_check.check_adam(dispatch.adam_stream_pass_, rng, tables, dev)
+        res["launches"] = dispatch.LAUNCHES["adam_stream"]
+        res["one_launch_a_32_tables"] = res["launches"] == probe_check.launches_of(tables)
+        return res
+
+    runs = [("adam_stream", case, lambda a=tables: adam_pass(a))
+            for case, tables in probe_check.ADAM_CASES.items()]
     runs += [("perrow_walk", case, lambda a=args: probe_check.check_perrow(
                  dispatch.perrow_colsum, rng, *a, dev))
              for case, args in probe_check.PERROW_CASES.items()]
@@ -2156,11 +2166,12 @@ def phase_probe_check(rng, dev) -> dict:
     for name, case, run in runs:
         res = run()
         torch.cuda.synchronize()
-        ok = probe_check.passed(res)
+        ok = probe_check.passed(res) and res.get("one_launch_a_32_tables", True)
         emit({"phase": "check", "case": f"{name} {case}", "limit": "bit-equal", **res, "ok": ok})
         if not ok:
             raise AssertionError(f"{name} {case}: the kernel is not bit-equal to its plain "
-                                 f"version, or a wrong result passes: {res}")
+                                 f"version, a wrong result passes, or a pass took other "
+                                 f"than one launch a 32 tables: {res}")
         worst[name] = max(worst[name], res["max_abs_err"])
     h, pack, d = probe_check.HOT_TOO_BIG
     try:
@@ -2218,17 +2229,19 @@ def phase_probes(dev) -> dict:
 
 def phase_probe_timing(rng, dev) -> dict:
     """Kernel, plain, library and bound ms of the probe kernels at the
-    probes' shapes: the Adam stream per launch over one bench table, from a
-    pass over the 26 (library: torch's fused Adam, which adds bias
-    correction: the same traffic, other values), the per-row walk over (8192, 128) (library:
-    ``x.sum(0)``, in another order), the hot gather of one Zipf(1.1) table's
-    hot ids at H = 1024, d = 16, pack 1 (library: ``index_select`` of the
-    real ids from the hot buffer)."""
+    probes' shapes: the Adam stream's pass over the 26 bench tables, one
+    launch (library: torch's fused Adam, which adds bias correction: the
+    same traffic, other values; timed in turns with the kernel), the per-row
+    walk over (8192, 128) beside its add-chain floor and the add latency
+    read on the card (library: ``x.sum(0)``, in another order), the hot gather of one Zipf(1.1) table's hot ids at
+    H = 1024, d = 16, pack 1 (library: ``index_select`` of the real ids from
+    the hot buffer)."""
     import torch
 
-    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import build, dispatch
     from recsys_tpu_torch.kernels import probes as probe_ref
     from recsys_tpu_torch.tools import gather_split_probe as gsp
+    from recsys_tpu_torch.tools import roofline
 
     res = {}
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
@@ -2241,29 +2254,51 @@ def phase_probe_timing(rng, dev) -> dict:
         p.grad = g
     fused = torch.optim.Adam(lib_ps, lr=probe_ref.ADAM["lr"], fused=True)
 
-    def run(step):
-        return lambda: [step(p, m, v, g) for p, m, v, g in zip(ps, ms_, vs, gs)]
+    def kernel_pass():
+        dispatch.adam_stream_pass_(ps, ms_, vs, gs)
+
+    def plain_pass():
+        for p, m, v, g in zip(ps, ms_, vs, gs):
+            probe_ref.adam_stream_step_(p, m, v, g)
 
     # p, m, v read and written, g read: 28 bytes and about 10 flops an element
-    b_ms, b_by = bound(7 * 4 * n_el * NUM_SPARSE, 10.0 * n_el * NUM_SPARSE, F32_FLOPS)
-    passes = {"ms": cuda_ms(run(dispatch.adam_stream_step_), 20, 3),
-              "plain_ms": cuda_ms(run(probe_ref.adam_stream_step_), 10, 2),
-              "library_ms": cuda_ms(fused.step, 20, 3), "bound_ms": b_ms}
-    # per launch (one table), as every other kernel's times
-    t = {**{k: v / NUM_SPARSE for k, v in passes.items()},
-         "pass_ms": passes, "library": "torch.optim.Adam(fused=True)", "bound_by": b_by,
-         "shape": [VOCAB, EMBED_DIM], "per": "one table; a pass over the 26 is 26 launches"}
+    n_pass = n_el * NUM_SPARSE
+    b_ms, b_by = bound(7 * 4 * n_pass, 10.0 * n_pass, F32_FLOPS)
+    # the kernel and torch's fused Adam in turns: kernel, library, library, kernel
+    turns = [cuda_ms(fn, 20, 3) for fn in (kernel_pass, fused.step, fused.step, kernel_pass)]
+    t = {"ms": (turns[0] + turns[3]) / 2, "plain_ms": cuda_ms(plain_pass, 10, 2),
+         "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+         "library": "torch.optim.Adam(fused=True)", "bound_ms": b_ms, "bound_by": b_by,
+         "shape": [NUM_SPARSE, VOCAB, EMBED_DIM],
+         "per": f"one pass over the {NUM_SPARSE} tables, one launch"}
+    t["per_table_ms"] = {k: t[k] / NUM_SPARSE for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms")}
+    t["tb_s"] = {k: 7 * 4 * n_pass / t[k] / 1e9 for k in ("ms", "library_ms")}
     emit({"phase": "timing", "kernel": "adam_stream", **t})
     res["adam_stream"] = t
     del ps, gs, ms_, vs, lib_ps, fused
 
     x = torch.randn((8192, 128), generator=gen, device=dev)
     b_ms, b_by = bound(4 * (x.numel() + x.shape[1]), float(x.numel()), F32_FLOPS)
+    clock_hz = roofline.card()["max_sm_clock_hz"]
+    chain_out = torch.empty(1, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    add_cycles = []
+    for _ in range(3):  # the add latency the chain floor assumes, read with clock64
+        build.check(build.libraries()["perrow_walk"].perrow_add_chain_cycles(
+            x.data_ptr(), chain_out.data_ptr(), cycles.data_ptr(), x.shape[0],
+            torch.cuda.current_stream(dev).cuda_stream), "perrow_add_chain_cycles")
+        add_cycles.append(cycles.item() / x.shape[0])
     t = {"ms": cuda_ms(lambda: dispatch.perrow_colsum(x), 200, 10),
          "plain_ms": cuda_ms(lambda: probe_ref.perrow_colsum(x), 3, 1),
          "library_ms": cuda_ms(lambda: x.sum(0), 200, 10), "library": "x.sum(0)",
-         "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape)}
+         "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape),
+         "plan": dispatch.perrow_plan(*x.shape), "clock_hz": clock_hz,
+         "chain_floor_ms": roofline.chain_floor_ms(x.shape[0], clock_hz),
+         "chain_floor": f"{roofline.F32_ADD_CYCLES} cycles a dependent f32 add at the "
+                        f"maximum SM clock", "add_cycles_measured": add_cycles}
     t["ns_per_row"] = t["ms"] * 1e6 / x.shape[0]
+    t["cycles_per_row"] = t["ns_per_row"] * clock_hz / 1e9
     emit({"phase": "timing", "kernel": "perrow_walk", **t})
     res["perrow_walk"] = t
 

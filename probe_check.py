@@ -5,13 +5,14 @@ All three limits are exact: the kernel's output must equal the plain
 version's bit for bit.
 * ``adam_stream`` (#11) rounds each operation once (round-to-nearest
   intrinsics, no FMA contraction), as the plain version's separate torch
-  operations do; p, m and v must change in place and g must not.
+  operations do; over every table of a pass, p, m and v must change in
+  place and g must not.
 * ``perrow_walk`` (#12) adds the rows in the same serial order.
 * ``hot_gather`` (#13) copies f32 rows, and gives +0 for every id outside
   [0, H·pack).
-Each limit must also reject wrong results: a stale m or an unmoved p; the
-sum without its last row; a row off by one or a sentinel gathered as a
-clamped row.
+Each limit must also reject wrong results: a stale m, an unmoved p or a
+pass that skips its last table; the sum without its last row; a row off
+by one or a sentinel gathered as a clamped row.
 """
 from __future__ import annotations
 
@@ -19,24 +20,39 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.kernels import probes as probe_ref
+from recsys_tpu_torch.kernels.dispatch import ADAM_PASS_TABLES
 
-# name -> (n elements, the state, element offset of the views: 1 misaligns
-# them and takes the kernel's scalar path)
+# name -> the tables of one pass, each (n elements, the state, element
+# offset of its views: 1 misaligns them and takes the kernel's scalar path).
+# One table is the one-table step; the passes: the probe's 26 bench tables
+# (one launch), unequal tables with a misaligned one and a 3-element one,
+# a pass holding an empty table, and 40 tables (two launches of 32 and 8).
 ADAM_CASES = {
-    "ragged 1001x16, probe state": (1001 * 16, "probe", 0),
-    "ragged 1001x16, random state": (1001 * 16, "random", 0),
-    "one bench table 100000x16, probe state": (100_000 * 16, "probe", 0),
-    "one bench table 100000x16, random state": (100_000 * 16, "random", 0),
-    "misaligned 16015, random state": (1001 * 16 - 1, "random", 1),
+    "ragged 1001x16, probe state": [(1001 * 16, "probe", 0)],
+    "ragged 1001x16, random state": [(1001 * 16, "random", 0)],
+    "one bench table 100000x16, probe state": [(100_000 * 16, "probe", 0)],
+    "one bench table 100000x16, random state": [(100_000 * 16, "random", 0)],
+    "misaligned 16015, random state": [(1001 * 16 - 1, "random", 1)],
+    "pass of the 26 bench tables, probe state": [(100_000 * 16, "probe", 0)] * 26,
+    "pass of unequal tables, one misaligned": [(1001 * 16, "random", 0), (4099, "random", 0),
+                                               (1001 * 16 - 1, "random", 1),
+                                               (100_000 * 16, "random", 0), (3, "random", 0)],
+    "pass with an empty table": [(4096, "random", 0), (0, "random", 0),
+                                 (1001 * 16 - 2, "random", 0)],
+    "pass of 40 tables, two launches": [(997 + 13 * i, "random", int(i % 3 == 0))
+                                        for i in range(40)],
 }
 # name -> (n rows, W, element offset of x): the probe's block, a count that
-# is not a whole number of 64 KB staged chunks, and the kernel's 4-byte
-# copies, taken for a width that is not a multiple of 4 and for an x that is
-# not 16-byte aligned
+# is not a whole number of staged chunks nor of 64-row groups, a width that
+# is not a multiple of 4 (a last block of 2 columns) and an x that is not
+# 16-byte aligned (their names are test ids), one row, one column, the
+# widest block (256 column slices) and a walk past the 50 MB L2
 PERROW_CASES = {"probe 8192x128": (8192, 128, 0), "ragged 1000x128": (1000, 128, 0),
                 "ragged 1000x130, 4-byte copies": (1000, 130, 0),
                 "misaligned 777x128, 4-byte copies": (777, 128, 1),
-                "one row 1x128": (1, 128, 0)}
+                "one row 1x128": (1, 128, 0), "one column 8192x1": (8192, 1, 0),
+                "widest 2048x1024": (2048, 1024, 0),
+                "past the L2 100000x128": (100_000, 128, 0)}
 # name -> (H, pack, d, ids): the probe's pack 1 (64 KB, past 48 KB), the JAX
 # test's pack 8, a width with 4-byte copies, a 128 KB buffer
 HOT_CASES = {"pack 1 H=1024 d=16": (1024, 1, 16, 13_312),
@@ -81,23 +97,38 @@ def adam_inputs(rng, n: int, state: str) -> list[np.ndarray]:
     return [p, m, v, g]
 
 
-def check_adam(step, rng, n: int, state: str, offset: int, device) -> dict:
-    """``step(p, m, v, g)`` (in place) against the plain step on the same
-    inputs; the tensors are views ``offset`` elements into their storage."""
-    arrays = adam_inputs(rng, n + offset, state)
-    ts = [torch.from_numpy(a).to(device)[offset:] for a in arrays]
-    before = [t.clone() for t in ts]
-    ptrs = [t.data_ptr() for t in ts]
-    step(*ts)
-    p, m, v, g = (t.clone() for t in before)
-    probe_ref.adam_stream_step_(p, m, v, g)
-    want = {"p": p, "m": m, "v": v}
-    got = dict(zip("pmv", ts))
-    res = _result(got, want, {"stale m": {**want, "m": before[1]},
-                              "p not updated": {**want, "p": before[0]}})
-    res["in_place"] = [t.data_ptr() for t in ts] == ptrs and all(
-        not bits_equal(t, b) for t, b in zip(ts[:3], before[:3]))
-    res["g_unchanged"] = bits_equal(ts[3], before[3])
+def launches_of(tables) -> int:
+    """Launches the card's pass makes over ``tables``: one for every
+    ``ADAM_PASS_TABLES`` nonempty tables."""
+    return -(-sum(1 for n, _, _ in tables if n) // ADAM_PASS_TABLES)
+
+
+def check_adam(pass_, rng, tables, device) -> dict:
+    """``pass_(ps, ms, vs, gs)`` (in place) over the tables of one pass
+    against the plain step on each table's same inputs; each table's
+    tensors are views ``offset`` elements into their storage."""
+    quads = [[torch.from_numpy(a).to(device)[offset:] for a in adam_inputs(rng, n + offset,
+                                                                          state)]
+             for n, state, offset in tables]
+    before = [[t.clone() for t in q] for q in quads]
+    ptrs = [t.data_ptr() for q in quads for t in q]
+    pass_(*(list(ts) for ts in zip(*quads)))
+    got, want, old = {}, {}, {}
+    for k, (q, b) in enumerate(zip(quads, before)):
+        plain = [t.clone() for t in b]
+        probe_ref.adam_stream_step_(*plain)
+        for name, g_, w_, o_ in zip("pmv", q, plain, b):
+            got[f"{name}{k}"], want[f"{name}{k}"], old[f"{name}{k}"] = g_, w_, o_
+    last = max(k for k, (n, _, _) in enumerate(tables) if n)
+    wrong = {"stale m": {**want, **{k: o for k, o in old.items() if k[0] == "m"}},
+             "p not updated": {**want, **{k: o for k, o in old.items() if k[0] == "p"}},
+             "last table not updated": {**want, **{f"{c}{last}": old[f"{c}{last}"]
+                                                   for c in "pmv"}}}
+    res = _result(got, want, wrong)
+    res["in_place"] = [t.data_ptr() for q in quads for t in q] == ptrs and all(
+        not bits_equal(t, o) for q, b in zip(quads, before) if q[0].numel()
+        for t, o in zip(q[:3], b[:3]))
+    res["g_unchanged"] = all(bits_equal(q[3], b[3]) for q, b in zip(quads, before))
     return res
 
 

@@ -64,11 +64,11 @@ SIGNATURES = {
         "topk_scores_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     },
     "adam_stream": {
-        "adam_stream_launch": (_I, [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _F, _F,
-                                    _F, _P]),
+        "adam_stream_launch": (_I, [_P, _P, _I, _F, _F, _F, _F, _F, _F, _P]),
     },
     "perrow_walk": {
-        "perrow_walk_launch": (_I, [_P, _P, _I, _I, _P]),
+        "perrow_walk_launch": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+        "perrow_add_chain_cycles": (_I, [_P, _P, _P, _I, _P]),
     },
     "hot_gather": {
         "hot_gather_smem_limit": (_I, []),

@@ -1,8 +1,9 @@
-// Elementwise Adam stream, in place, for Hopper (sm_90a).
+// Elementwise Adam stream over many tables in one launch, in place, for
+// Hopper (sm_90a).
 //
 // Replaces: recsys_tpu/tools/stream_probe.py::_pallas_adam_kernel, called by
-// probe_pallas_adam_stream.  Over n f32 elements of p, m, v (updated in
-// place) and g (read):
+// probe_pallas_adam_stream, whose pass calls it once on each table.  Over
+// the f32 elements of each table's p, m, v (updated in place) and g (read):
 //   m = b1·m + (1−b1)·g,  v = b2·v + (1−b2)·g·g,  p = p − lr·m / (√v + eps)
 // with no bias correction: a pure stream, the probe of how fast the card
 // moves an optimizer's 7 bytes of traffic per parameter byte.
@@ -11,14 +12,26 @@
 // v: 28 bytes for about 10 flops.  At the probe's 26 tables of 100,000 x 16
 // that is 1.165 GB a pass, 0.348 ms at 3.35 TB/s.
 //
-// Design: a grid-stride loop, each thread four elements at a time with
-// 16-byte loads and stores when every pointer is 16-byte aligned, and a
-// scalar tail for a count that is not a multiple of 4.  The arithmetic is
-// written with round-to-nearest intrinsics (__fmul_rn, __fadd_rn, ...), so
-// nvcc cannot contract b1·m + (1−b1)·g into an FMA: each operation rounds
-// once, as the plain PyTorch version's separate operations do, and the
-// kernel is held to it bit for bit.  1−b1 and 1−b2 come from the wrapper,
-// rounded once from double as the plain version's scalars are.
+// Design: one launch a pass of up to kMaxTables tables, their pointers and
+// counts passed by value in the kernel's parameters.  The float4 pieces of
+// every table whose four pointers are 16-byte aligned form one concatenated
+// index space.  A persistent grid of a whole number of blocks per SM, all
+// resident at once, sweeps it in steps of 512 float4, step j to block
+// j mod grid: no wave runs half empty, blocks loop within one step of each
+// other, and the whole grid streams one window of each array at a time.
+// (Equal contiguous ranges a block balance exactly but measured slower:
+// thousands of scattered streams, and ranges that start off a 128-byte
+// line.)  Each thread keeps two float4 of each of p, m, v and g in flight,
+// with streaming loads and stores (__ldcs, __stcs: a pass is 23x the 50 MB
+// L2).  The elements left over (a count that is not a multiple of 4, or a
+// whole table with an unaligned pointer) form a second index space, split
+// into equal contiguous shares and taken one element at a time in the same
+// launch.  The arithmetic is written with round-to-nearest
+// intrinsics (__fmul_rn, __fadd_rn, ...), so nvcc cannot contract
+// b1·m + (1−b1)·g into an FMA: each operation rounds once, as the plain
+// PyTorch version's separate operations do, and the kernel is held to it
+// bit for bit.  1−b1 and 1−b2 come from the wrapper, rounded once from
+// double as the plain version's scalars are.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,10 +39,26 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;
+constexpr int kUnroll = 2;  // float4 of each array a thread keeps in flight
+constexpr long long kStep = kUnroll * kThreads;
+constexpr int kMaxTables = 32;
 
 struct Hyper {
   float b1, omb1, b2, omb2, eps, lr;
+};
+
+// A pass of `count` tables.  Table t owns float4 pieces [voff[t], voff[t+1])
+// of the vector space and elements [soff[t], soff[t+1]) of the scalar space,
+// the latter starting at its element sfirst[t].
+struct Pass {
+  float* p[kMaxTables];
+  float* m[kMaxTables];
+  float* v[kMaxTables];
+  const float* g[kMaxTables];
+  long long voff[kMaxTables + 1];
+  long long soff[kMaxTables + 1];
+  long long sfirst[kMaxTables];
+  int count;
 };
 
 __device__ __forceinline__ void adam1(float& p, float& m, float& v, float g, const Hyper& h) {
@@ -38,68 +67,117 @@ __device__ __forceinline__ void adam1(float& p, float& m, float& v, float g, con
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(h.lr, m), __fadd_rn(__fsqrt_rn(v), h.eps)));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    adam_stream_vec_kernel(float4* __restrict__ p, float4* __restrict__ m,
-                           float4* __restrict__ v, const float4* __restrict__ g,
-                           long long n4, Hyper h) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    float4 pp = p[i], mm = m[i], vv = v[i];
-    const float4 gg = __ldg(g + i);
-    adam1(pp.x, mm.x, vv.x, gg.x, h);
-    adam1(pp.y, mm.y, vv.y, gg.y, h);
-    adam1(pp.z, mm.z, vv.z, gg.z, h);
-    adam1(pp.w, mm.w, vv.w, gg.w, h);
-    p[i] = pp;
-    m[i] = mm;
-    v[i] = vv;
-  }
+__device__ __forceinline__ void adam4(float4& p, float4& m, float4& v, const float4& g,
+                                      const Hyper& h) {
+  adam1(p.x, m.x, v.x, g.x, h);
+  adam1(p.y, m.y, v.y, g.y, h);
+  adam1(p.z, m.z, v.z, g.z, h);
+  adam1(p.w, m.w, v.w, g.w, h);
+}
+
+// The table whose range of `off` holds i, searched upward from t.
+__device__ __forceinline__ int table_of(const long long* off, long long i, int t) {
+  while (i >= off[t + 1]) ++t;
+  return t;
 }
 
 __global__ void __launch_bounds__(kThreads)
-    adam_stream_scalar_kernel(float* __restrict__ p, float* __restrict__ m,
-                              float* __restrict__ v, const float* __restrict__ g,
-                              long long start, long long n, Hyper h) {
-  for (long long i = start + blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
-    float pp = p[i], mm = m[i], vv = v[i];
-    adam1(pp, mm, vv, __ldg(g + i), h);
-    p[i] = pp;
-    m[i] = mm;
-    v[i] = vv;
+    adam_stream_pass_kernel(const __grid_constant__ Pass a, const Hyper h) {
+  const long long n4 = a.voff[a.count], ns = a.soff[a.count];
+  // the vector space in steps of kStep float4, step j to block j % gridDim.x
+  int tv = 0;
+  for (long long base = blockIdx.x * kStep; base < n4;
+       base += static_cast<long long>(gridDim.x) * kStep) {
+    float4 pp[kUnroll], mm[kUnroll], vv[kUnroll], gg[kUnroll];
+    float4 *P[kUnroll], *M[kUnroll], *V[kUnroll];
+    bool in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // every load of the step before any use
+      const long long i = base + u * kThreads + threadIdx.x;
+      in[u] = i < n4;
+      if (in[u]) {
+        tv = table_of(a.voff, i, tv);
+        const long long j = i - a.voff[tv];
+        P[u] = reinterpret_cast<float4*>(a.p[tv]) + j;
+        M[u] = reinterpret_cast<float4*>(a.m[tv]) + j;
+        V[u] = reinterpret_cast<float4*>(a.v[tv]) + j;
+        pp[u] = __ldcs(P[u]);
+        mm[u] = __ldcs(M[u]);
+        vv[u] = __ldcs(V[u]);
+        gg[u] = __ldcs(reinterpret_cast<const float4*>(a.g[tv]) + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (in[u]) {
+        adam4(pp[u], mm[u], vv[u], gg[u], h);
+        __stcs(P[u], pp[u]);
+        __stcs(M[u], mm[u]);
+        __stcs(V[u], vv[u]);
+      }
+    }
+  }
+  // the scalar space: this block's equal share, one element a thread a step
+  const long long slo = ns * blockIdx.x / gridDim.x, shi = ns * (blockIdx.x + 1ll) / gridDim.x;
+  int t = 0;
+  for (long long i = slo + threadIdx.x; i < shi; i += kThreads) {
+    t = table_of(a.soff, i, t);
+    const long long j = a.sfirst[t] + (i - a.soff[t]);
+    float pp = a.p[t][j], mm = a.m[t][j], vv = a.v[t][j];
+    adam1(pp, mm, vv, __ldg(a.g[t] + j), h);
+    a.p[t][j] = pp;
+    a.m[t][j] = mm;
+    a.v[t][j] = vv;
   }
 }
 
-int blocks_for(long long work) {
-  const long long b = (work + kThreads - 1) / kThreads;
-  return static_cast<int>(b < kMaxBlocks ? (b < 1 ? 1 : b) : kMaxBlocks);
+// Blocks of the persistent grid: a whole number a SM, as many as stay
+// resident, and no more than the work needs.
+int grid_for(long long n4, long long ns) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& full = cached[dev & 63];
+  if (full == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, adam_stream_pass_kernel, kThreads,
+                                                  0);
+    full = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = (n4 + kStep - 1) / kStep + (ns + kThreads - 1) / kThreads;
+  return static_cast<int>(need < full ? (need < 1 ? 1 : need) : full);
 }
 
 }  // namespace
 
-// p, m, v (n) f32, updated in place; g (n) f32, read.  omb1 = 1 − b1 and
-// omb2 = 1 − b2.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int adam_stream_launch(void* p, void* m, void* v, const void* g, long long n,
+// One pass over `count` tables (1 <= count <= 32): table t is p[t], m[t],
+// v[t] (updated in place) and g[t] (read), `n[t]` f32 elements each, the
+// pointers at ptrs[4t .. 4t+3] in the order p, m, v, g.  omb1 = 1 − b1 and
+// omb2 = 1 − b2.  One launch on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a count or size out of range.
+extern "C" int adam_stream_launch(const uint64_t* ptrs, const long long* n, int count,
                                   float b1, float omb1, float b2, float omb2, float eps,
                                   float lr, void* stream) {
-  if (n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (count < 1 || count > kMaxTables) return cudaErrorInvalidValue;
+  Pass a{};
+  a.count = count;
+  for (int t = 0; t < count; ++t) {
+    if (n[t] < 0) return cudaErrorInvalidValue;
+    a.p[t] = reinterpret_cast<float*>(ptrs[4 * t]);
+    a.m[t] = reinterpret_cast<float*>(ptrs[4 * t + 1]);
+    a.v[t] = reinterpret_cast<float*>(ptrs[4 * t + 2]);
+    a.g[t] = reinterpret_cast<const float*>(ptrs[4 * t + 3]);
+    const uint64_t align = ptrs[4 * t] | ptrs[4 * t + 1] | ptrs[4 * t + 2] | ptrs[4 * t + 3];
+    const long long vec = (align & 15) == 0 ? n[t] / 4 : 0;
+    a.voff[t + 1] = a.voff[t] + vec;
+    a.sfirst[t] = 4 * vec;
+    a.soff[t + 1] = a.soff[t] + n[t] - 4 * vec;
+  }
+  const long long n4 = a.voff[count], ns = a.soff[count];
+  if (n4 + ns == 0) return 0;
   const Hyper h{b1, omb1, b2, omb2, eps, lr};
-  const uintptr_t align = reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(m) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
-  long long done = 0;
-  if ((align & 15) == 0 && n >= 4) {
-    const long long n4 = n / 4;
-    adam_stream_vec_kernel<<<blocks_for(n4), kThreads, 0, s>>>(
-        static_cast<float4*>(p), static_cast<float4*>(m), static_cast<float4*>(v),
-        static_cast<const float4*>(g), n4, h);
-    done = n4 * 4;
-  }
-  if (done < n) {
-    adam_stream_scalar_kernel<<<blocks_for(n - done), kThreads, 0, s>>>(
-        static_cast<float*>(p), static_cast<float*>(m), static_cast<float*>(v),
-        static_cast<const float*>(g), done, n, h);
-  }
+  adam_stream_pass_kernel<<<grid_for(n4, ns), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h);
   return static_cast<int>(cudaGetLastError());
 }

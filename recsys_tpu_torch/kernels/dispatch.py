@@ -13,8 +13,9 @@ interaction's, the FM bi-interaction's and the pooled gather's backwards are
 torch ops (the JAX package leaves them to XLA), the
 fused MLP's backward is the ``mlp_bwd`` kernel and the attention's the
 ``flash_attention_bwd`` kernels.  ``topk_scores_fused`` (retrieval) has no
-gradient, nor have the probe kernels' wrappers ``adam_stream_step_``,
-``perrow_colsum`` and ``hot_gather`` (``tools/stream_probe.py``,
+gradient, nor have the probe kernels' wrappers ``adam_stream_pass_``
+(and its one-table case ``adam_stream_step_``), ``perrow_colsum`` and
+``hot_gather`` (``tools/stream_probe.py``,
 ``tools/gather_split_probe.py``).
 """
 from __future__ import annotations
@@ -489,34 +490,87 @@ def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
 
 
 # -- the probe kernels --------------------------------------------------------
+ADAM_PASS_TABLES = 32  # tables a launch of the Adam pass takes (csrc/adam_stream.cu)
+
+
+def adam_stream_pass_(ps: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                      vs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor]) -> None:
+    """Elementwise Adam with no bias correction and the probe's constants
+    over a list of tables, in place over each p, m and v (f32, one shape a
+    table), each g read; see ``kernels/probes.py``.  On the card one launch
+    takes up to ``ADAM_PASS_TABLES`` tables of any counts; on the CPU the
+    plain step runs table by table."""
+    if not len(ps) == len(ms) == len(vs) == len(gs):
+        raise ValueError(f"adam_stream_pass_: ps, ms, vs and gs must be lists of one length, "
+                         f"got {len(ps)}, {len(ms)}, {len(vs)}, {len(gs)}")
+    quads = list(zip(ps, ms, vs, gs))
+    if any(t.dtype != torch.float32 or t.shape != q[0].shape for q in quads for t in q):
+        raise ValueError("adam_stream_pass_: p, m, v and g must be f32 of one shape")
+    if not quads:
+        return None
+    device = quads[0][0].device
+    if any(t.device != device for q in quads for t in q):
+        raise ValueError(f"adam_stream_pass_: every tensor must be on {device}, got "
+                         f"{sorted({str(t.device) for q in quads for t in q})}")
+    if device.type == "cpu":
+        for q in quads:
+            probe_ref.adam_stream_step_(*q)
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"adam_stream_pass_: no kernel for device {device}")
+    for q in quads:
+        _check_cuda("adam_stream_pass_", q, device)
+    quads = [q for q in quads if q[0].numel()]
+    lr, b1, b2, eps = (probe_ref.ADAM[k] for k in ("lr", "b1", "b2", "eps"))
+    lib = build.libraries()["adam_stream"]
+    for at in range(0, len(quads), ADAM_PASS_TABLES):
+        part = quads[at:at + ADAM_PASS_TABLES]
+        ptrs = (ctypes.c_uint64 * (4 * len(part)))(*(t.data_ptr() for q in part for t in q))
+        counts = (ctypes.c_longlong * len(part))(*(q[0].numel() for q in part))
+        with torch.cuda.device(device):
+            rc = lib.adam_stream_launch(
+                ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(counts, ctypes.c_void_p),
+                len(part), b1, 1.0 - b1, b2, 1.0 - b2, eps, lr, _stream(part[0][0]))
+        build.check(rc, "adam_stream_pass_")
+        LAUNCHES["adam_stream"] += 1
+    return None
+
+
 def adam_stream_step_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       g: torch.Tensor) -> None:
     """Elementwise Adam with no bias correction and the probe's constants,
-    in place over p, m and v (f32, one shape), g read; see
-    ``kernels/probes.py``.  The kernel takes every count."""
-    ts = (p, m, v, g)
-    if any(t.dtype != torch.float32 or t.shape != p.shape for t in ts):
-        raise ValueError("adam_stream_step_: p, m, v and g must be f32 of one shape")
-    if p.device.type == "cpu":
-        return probe_ref.adam_stream_step_(p, m, v, g)
-    if p.device.type != "cuda":
-        raise ValueError(f"adam_stream_step_: no kernel for device {p.device}")
-    _check_cuda("adam_stream_step_", ts, p.device)
-    if p.numel() == 0:
-        return None
-    lr, b1, b2, eps = (probe_ref.ADAM[k] for k in ("lr", "b1", "b2", "eps"))
-    with torch.cuda.device(p.device):
-        rc = build.libraries()["adam_stream"].adam_stream_launch(
-            *(t.data_ptr() for t in ts), p.numel(), b1, 1.0 - b1, b2, 1.0 - b2, eps, lr,
-            _stream(p))
-    build.check(rc, "adam_stream_step_")
-    LAUNCHES["adam_stream"] += 1
-    return None
+    in place over p, m and v (f32, one shape), g read: the one-table pass
+    (``adam_stream_pass_``)."""
+    return adam_stream_pass_([p], [m], [v], [g])
+
+
+PERROW_COLS = 4           # columns a block of the walk (csrc/perrow_walk.cu)
+PERROW_CHUNK_ROWS = 1024  # rows a staged chunk: a multiple of the kernel's 64-row groups
+PERROW_STAGES = 6         # chunks in the ring
+
+
+def perrow_plan(n: int, w: int) -> dict:
+    """The per-row walk's geometry for an (n, W) block: ``blocks`` of
+    ``cols`` adjacent columns (one thread walks each column), a ring of
+    ``stages`` chunks of ``chunk_rows`` rows in ``smem_bytes`` of shared
+    memory (an 8-byte ``full`` and ``empty`` barrier a stage, then each
+    stage's columns, ``pitch`` floats each: the rows rounded up to a
+    multiple of 4, and 4 more).  A walk of at most ``PERROW_CHUNK_ROWS``
+    rows is one chunk.  The launch takes the two choices, ``chunk_rows``
+    and ``stages``; the kernel derives the grid and the bytes from them
+    as here, and the rest of the plan describes that launch."""
+    chunk_rows = max(1, min(PERROW_CHUNK_ROWS, n))
+    stages = max(1, min(PERROW_STAGES, -(-n // chunk_rows)))
+    pitch = -(-chunk_rows // 4) * 4 + 4
+    return {"blocks": -(-w // PERROW_COLS), "cols": PERROW_COLS, "chunk_rows": chunk_rows,
+            "stages": stages, "pitch": pitch,
+            "smem_bytes": 16 * stages + 4 * stages * PERROW_COLS * pitch}
 
 
 def perrow_colsum(x: torch.Tensor) -> torch.Tensor:
     """(n, W) f32 -> (1, W) f32, the column sums in serial row order; see
-    ``kernels/probes.py``.  The kernel takes W up to 1024."""
+    ``kernels/probes.py``.  The kernel takes W up to 1024, spread over
+    column slices (``perrow_plan``)."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"perrow_colsum: expected (n, W) f32, got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -527,10 +581,11 @@ def perrow_colsum(x: torch.Tensor) -> torch.Tensor:
     n, w = x.shape
     if not 1 <= w <= 1024:
         raise ValueError(f"perrow_colsum: the kernel takes 1 <= W <= 1024, got W={w}")
+    plan = perrow_plan(n, w)
     out = torch.empty((1, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = build.libraries()["perrow_walk"].perrow_walk_launch(
-            x.data_ptr(), out.data_ptr(), n, w, _stream(x))
+            x.data_ptr(), out.data_ptr(), n, w, plan["chunk_rows"], plan["stages"], _stream(x))
     build.check(rc, "perrow_colsum")
     LAUNCHES["perrow_walk"] += 1
     return out

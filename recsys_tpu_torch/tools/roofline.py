@@ -7,6 +7,8 @@ peaks, CUDA-event timing and the card's own report.
 * ``SPECS`` -- published peaks by card name (NVIDIA's H100 SXM data sheet,
   dense rates, at the 700 W limit).
 * ``cuda_ms(fn)`` -- mean device ms of a call, from CUDA events.
+* ``chain_floor_ms(n, clock_hz)`` -- the time of n dependent f32 adds at
+  ``F32_ADD_CYCLES`` each.
 * ``card()`` -- nvidia-smi's name, power limit and maximum SM clock.
 """
 from __future__ import annotations
@@ -23,11 +25,20 @@ SPECS = {
     "NVIDIA H100 80GB HBM3": {"hbm_bw": 3.35e12, "bf16_flops": 989e12, "f32_flops": 67e12},
 }
 SLEEP_CYCLES_PER_S = 2.0e9  # at least the SM clock (H100 boost ~1.98 GHz)
+# latency of a dependent f32 add on the SM, in cycles: chip_smoke.py's walk timing
+# reads it with clock64 (perrow_add_chain_cycles) beside the floor (PERF.md)
+F32_ADD_CYCLES = 4
 
 
 def spec(kind: str) -> dict | None:
     """The published peaks of the card named ``kind``, or None."""
     return next((s for k, s in SPECS.items() if kind.startswith(k)), None)
+
+
+def chain_floor_ms(n: int, clock_hz: float) -> float:
+    """ms of a chain of ``n`` dependent f32 adds at ``clock_hz``, at the
+    ``F32_ADD_CYCLES`` each: the floor of a serial walk of n rows."""
+    return n * F32_ADD_CYCLES / clock_hz * 1e3
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:

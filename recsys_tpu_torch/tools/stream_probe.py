@@ -8,16 +8,18 @@ more than the H100's 50 MB L2), batches of 16384 ids.
   bytes a pass (1.165 GB), the pass the CTR train step spends half its
   device time in.
 * ``adam_stream_cuda`` -- the same traffic through the hand-written
-  elementwise Adam (``dispatch.adam_stream_step_``, no bias correction):
-  how close a single pass comes to the card's 3.35 TB/s.
+  elementwise Adam (``dispatch.adam_stream_pass_``, no bias correction,
+  one launch for the 26 tables): how close a single pass comes to the
+  card's 3.35 TB/s.
 * ``random_gather_26tables`` -- 26 gathers of 16384 uniform rows, one timed
   window: the floor of every forward lookup.
 * ``gather_bytes_vs_rows`` -- the same gathers from rows of 512, 256 (bf16,
   and f32 at width 64), 64 and 32 bytes: whether the floor is set by bytes
   or by rows.
-* ``perrow_walk`` -- one block walking an (8192, 128) f32 block of rows one
-  row a step (``dispatch.perrow_colsum``): ns per row and cycles per row at
-  the card's maximum SM clock (nvidia-smi).
+* ``perrow_walk`` -- an (8192, 128) f32 block of rows walked one row a
+  step, each column in serial order, the columns spread over the SMs
+  (``dispatch.perrow_colsum``): ns per row and cycles per row at the card's
+  maximum SM clock (nvidia-smi).
 
 Run: python -m recsys_tpu_torch.tools.stream_probe [--iters 30] [--seed 0]
                                                    [--device cpu] [--out FILE]
@@ -37,7 +39,7 @@ import torch
 from recsys_tpu_torch.kernels import default_device, dispatch
 from recsys_tpu_torch.kernels import probes as probe_ref
 from recsys_tpu_torch.tools.roofline import (BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card,
-                                             cuda_ms, spec)
+                                             chain_floor_ms, cuda_ms, spec)
 
 WIDE = 128          # the JAX probe's physical row: 8 ids of 16 packed
 PERROW_ROWS = 8192  # the JAX probe's VMEM block of rows
@@ -86,16 +88,12 @@ def probe_adam_stream(iters, *, device, generator, tables=NUM_SPARSE, vocab=VOCA
 def probe_cuda_adam_stream(iters, *, device, generator, tables=NUM_SPARSE, vocab=VOCAB,
                            dim=EMBED_DIM) -> dict:
     """The hand-written elementwise Adam (no bias correction) over the same
-    tables, m and v from zero: the same 7x traffic."""
+    tables in one pass, m and v from zero: the same 7x traffic."""
     ps = _tables(generator, device, tables, vocab, dim)
     gs = [torch.randn(p.shape, generator=generator, device=device) * 1e-3 for p in ps]
     ms_, vs = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]
 
-    def step():
-        for p, m, v, g in zip(ps, ms_, vs, gs):
-            dispatch.adam_stream_step_(p, m, v, g)
-
-    ms = timer(device)(step, iters, 3)
+    ms = timer(device)(lambda: dispatch.adam_stream_pass_(ps, ms_, vs, gs), iters, 3)
     traffic = 7 * tables * vocab * dim * 4
     return {"ms": ms, "traffic_gb": traffic / 1e9, "effective_gb_s": traffic / ms / 1e6}
 
@@ -149,17 +147,18 @@ def probe_gather_bytes_vs_rows(iters, *, device, generator, tables=NUM_SPARSE, v
 
 def probe_perrow_walk(iters, *, device, generator, rows=PERROW_ROWS, width=WIDE,
                       clock_hz=None, hbm_bw=None) -> dict:
-    """One block walking (rows, width) f32 one row a step
+    """(rows, width) f32 walked one row a step, each column in serial order
     (``dispatch.perrow_colsum``); ns per row, cycles per row at
-    ``clock_hz`` (the card's maximum SM clock) and the bytes bound at
-    ``hbm_bw`` (bytes/s), when given."""
+    ``clock_hz`` (the card's maximum SM clock), the add-chain floor at it
+    and the bytes bound at ``hbm_bw`` (bytes/s), when given."""
     x = torch.randn((rows, width), generator=generator, device=device)
     ms = timer(device)(lambda: dispatch.perrow_colsum(x), iters, 3)
     ns = ms * 1e6 / rows
     return {"rows": rows, "width": width, "ms": ms, "ns_per_row": ns,
             "bound_ms": (rows + 1) * width * 4 / hbm_bw * 1e3 if hbm_bw else None,
             "clock_hz": clock_hz,
-            "cycles_per_row_at_clock": ns * clock_hz / 1e9 if clock_hz else None}
+            "cycles_per_row_at_clock": ns * clock_hz / 1e9 if clock_hz else None,
+            "chain_floor_ms": chain_floor_ms(rows, clock_hz) if clock_hz else None}
 
 
 def main(argv=None, **sizes):

@@ -591,13 +591,20 @@ def test_ctr_train_step_on_card_matches_cpu(cuda, name):
 
 @pytest.mark.parametrize("case", list(probe_check.ADAM_CASES))
 def test_adam_stream_kernel_matches_plain_bit_for_bit(cuda, case):
-    n, state, offset = probe_check.ADAM_CASES[case]
+    tables = probe_check.ADAM_CASES[case]
     dispatch.reset_launches()
-    res = probe_check.check_adam(dispatch.adam_stream_step_, np.random.default_rng(30), n, state,
-                                 offset, cuda)
+    res = probe_check.check_adam(dispatch.adam_stream_pass_, np.random.default_rng(30), tables,
+                                 cuda)
     torch.cuda.synchronize()
-    assert dispatch.LAUNCHES["adam_stream"] == 1
+    assert dispatch.LAUNCHES["adam_stream"] == probe_check.launches_of(tables)  # one a pass
     assert probe_check.passed(res), res
+    if len(tables) == 1:  # the one-table step is the same launch
+        dispatch.reset_launches()
+        res = probe_check.check_adam(lambda *q: dispatch.adam_stream_step_(*(t[0] for t in q)),
+                                     np.random.default_rng(30), tables, cuda)
+        torch.cuda.synchronize()
+        assert dispatch.LAUNCHES["adam_stream"] == 1
+        assert probe_check.passed(res), res
 
 
 @pytest.mark.parametrize("case", list(probe_check.PERROW_CASES))
@@ -606,6 +613,7 @@ def test_perrow_walk_kernel_matches_plain_bit_for_bit(cuda, case):
     dispatch.reset_launches()
     res = probe_check.check_perrow(dispatch.perrow_colsum, np.random.default_rng(31), n, w,
                                    offset, cuda)
+    torch.cuda.synchronize()
     assert dispatch.LAUNCHES["perrow_walk"] == 1
     assert probe_check.passed(res), res
 
@@ -630,3 +638,32 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="f32 of one shape"):
         dispatch.adam_stream_step_(*(torch.zeros(8, device=cuda) for _ in range(3)),
                                    torch.zeros(9, device=cuda))
+    with pytest.raises(ValueError, match="one length"):
+        dispatch.adam_stream_pass_(*([torch.zeros(8, device=cuda)] for _ in range(3)), [])
+    with pytest.raises(ValueError, match="contiguous"):
+        dispatch.adam_stream_pass_(*([torch.zeros(8, device=cuda)[::2]] for _ in range(4)))
+    for first in ("cpu", cuda):  # a list across devices steps nothing
+        other = cuda if first == "cpu" else "cpu"
+        with pytest.raises(ValueError, match="every tensor must be on"):
+            dispatch.adam_stream_pass_(*([torch.zeros(8, device=first),
+                                          torch.zeros(8, device=other)] for _ in range(4)))
+
+
+def test_perrow_walk_library_refuses_bad_plans_and_reads_the_add_latency(cuda):
+    from recsys_tpu_torch.kernels import build
+
+    lib = build.libraries()["perrow_walk"]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x, out = torch.ones((8192, 4), device=cuda), torch.empty((1, 4), device=cuda)
+    # chunks of 100 rows (not whole 64-row groups), and a ring past shared memory
+    for chunk_rows, stages in ((100, 6), (8192, 6)):
+        assert lib.perrow_walk_launch(x.data_ptr(), out.data_ptr(), 8192, 4, chunk_rows,
+                                      stages, stream) != 0
+    cycles = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert lib.perrow_add_chain_cycles(x.data_ptr(), out.data_ptr(), cycles.data_ptr(), 100,
+                                       stream) != 0  # not a multiple of 64
+    build.check(lib.perrow_add_chain_cycles(x.data_ptr(), out.data_ptr(), cycles.data_ptr(),
+                                            8192, stream), "perrow_add_chain_cycles")
+    torch.cuda.synchronize()
+    assert out[0, 0].item() == 8192.0  # 8192 ones, exact in f32
+    assert 1.0 <= cycles.item() / 8192 < 64.0

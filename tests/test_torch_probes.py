@@ -1,15 +1,17 @@
 """The port's probes slice against the JAX package on the CPU.
 
 * The plain versions of the three probe kernels (``kernels/probes.py``)
-  against the JAX package's Pallas kernels run in interpret mode:
+  against the JAX package's Pallas kernels run in interpret mode, the Adam
+  pass (``dispatch.adam_stream_pass_``) table by table:
   ``_pallas_adam_kernel`` within rtol 1e-6, atol 1e-9 (XLA may contract a
   multiply and an add into one rounding); ``_perrow_kernel`` and
   ``hot_gather_pallas(mm_bf16=False)`` bit for bit; the JAX default
   ``mm_bf16=True`` within one bf16 rounding of the exact rows.
 * ``host_split``, ``_zipf_ids``, ``zipf_ids`` and ``seed_stats`` against
   their JAX counterparts: equal.
-* The probes' CLIs on the CPU at tiny sizes, and ``probe_check``'s limits
-  rejecting its wrong results.
+* The probes' CLIs on the CPU at tiny sizes, ``probe_check``'s limits
+  rejecting its wrong results, the Adam pass's refusals and the per-row
+  walk's geometry (``dispatch.perrow_plan``).
 """
 import functools
 import glob
@@ -78,6 +80,59 @@ def test_adam_stream_wrapper_runs_the_plain_step_on_cpu_in_place():
         dispatch.adam_stream_step_(ts[0], ts[1], ts[2], ts[3].double())
 
 
+def _pass_tables(state):
+    """Three tables of unequal sizes: (40, 128); a ragged (37, 16), its last
+    block of 16 rows short; a (9, 33) view one element into its storage."""
+    rng = np.random.default_rng(2)
+    tables = []
+    for rows, cols, offset in ((40, 128, 0), (37, 16, 0), (9, 33, 1)):
+        flat = probe_check.adam_inputs(rng, rows * cols + offset, state)
+        tables.append(([a[offset:].reshape(rows, cols) for a in flat],
+                       [torch.from_numpy(a.copy())[offset:].view(rows, cols) for a in flat]))
+    return tables
+
+
+@pytest.mark.parametrize("state", ["probe", "random"])
+def test_adam_stream_pass_matches_pallas_kernel_per_table(state):
+    tables = _pass_tables(state)
+    plain = [[t.clone() for t in ts] for _, ts in tables]
+    gs = [ts[3].clone() for _, ts in tables]
+    dispatch.reset_launches()
+    assert dispatch.adam_stream_pass_(*(list(q) for q in zip(*(ts for _, ts in tables)))) is None
+    assert dispatch.LAUNCHES["adam_stream"] == 0  # the plain version launches nothing
+    for (arrays, ts), want, g in zip(tables, plain, gs):
+        assert ts[0].storage_offset() in (0, 1)
+        for got, w, name in zip(ts[:3], _jax_adam(*arrays), "pmv"):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), **ADAM_TOL, err_msg=name)
+        probes.adam_stream_step_(*want)
+        for got, w in zip(ts, want):
+            assert probe_check.bits_equal(got, w)
+        assert torch.equal(ts[3], g)
+
+
+@pytest.mark.parametrize("fault", ["unequal lists", "f64 g", "shape mismatch",
+                                   "cpu table then meta table", "meta table then cpu table",
+                                   "meta g in a cpu table"])
+def test_adam_stream_pass_refuses_what_it_cannot_take(fault):
+    ts = [[torch.ones(8) for _ in range(2)] for _ in range(4)]
+    if fault == "unequal lists":
+        ts[2] = ts[2][:1]
+        match = "one length"
+    elif fault in ("f64 g", "shape mismatch"):
+        ts[3][1] = torch.zeros(8, dtype=torch.float64) if fault == "f64 g" else torch.zeros(9)
+        match = "f32 of one shape"
+    else:  # no table may be stepped on a device other than the first table's
+        meta = 0 if fault == "meta table then cpu table" else 1
+        for lst in ts[3:] if fault == "meta g in a cpu table" else ts:
+            lst[meta] = torch.ones(8, device="meta")
+        match = "every tensor must be on"
+    before = [t.clone() for lst in ts for t in lst if t.device.type == "cpu"]
+    with pytest.raises(ValueError, match=match):
+        dispatch.adam_stream_pass_(*ts)
+    after = [t for lst in ts for t in lst if t.device.type == "cpu"]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))  # nothing stepped
+
+
 # -- #12: the per-row walk ------------------------------------------------------
 def _jax_perrow(x):
     return pl.pallas_call(
@@ -94,6 +149,24 @@ def test_perrow_colsum_plain_is_bit_equal_to_pallas_kernel(n):
     got = dispatch.perrow_colsum(torch.from_numpy(x))
     want = torch.from_numpy(np.array(_jax_perrow(x)))
     assert probe_check.bits_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 777, 8192, 100_000])
+@pytest.mark.parametrize("w", [1, 3, 4, 128, 130, 1024])
+def test_perrow_plan_covers_every_column_once_within_shared_memory(n, w):
+    plan = dispatch.perrow_plan(n, w)
+    cols, blocks = plan["cols"], plan["blocks"]
+    owners = [c // cols for c in range(w)]  # block b owns columns [b·cols, b·cols + cols)
+    assert sorted(set(owners)) == list(range(blocks))  # no block without a column
+    assert plan["smem_bytes"] <= 232_448  # the H100's opt-in shared memory a block
+    pitch = plan["pitch"]  # a column's floats in a stage: whole 16-byte loads, and 4 more
+    assert pitch % 4 == 0 and plan["chunk_rows"] + 4 <= pitch < plan["chunk_rows"] + 8
+    assert plan["smem_bytes"] == 16 * plan["stages"] + 4 * plan["stages"] * cols * pitch
+    assert 1 <= plan["chunk_rows"] <= n and plan["stages"] >= 1
+    assert plan["chunk_rows"] % 64 == 0 or plan["chunk_rows"] == n  # whole 64-row groups
+    assert plan["stages"] * plan["chunk_rows"] < n + plan["chunk_rows"]  # no empty stage
+    if (n, w) == (8192, 128):
+        assert blocks > 1
 
 
 # -- #13: the hot gather ----------------------------------------------------------
@@ -232,9 +305,10 @@ def test_dedup_probe_cli_on_cpu(capsys):
 
 # -- probe_check's limits ------------------------------------------------------------
 def _checks():
-    for name, (n, state, offset) in probe_check.ADAM_CASES.items():
-        yield f"adam {name}", lambda r, n=n, s=state, o=offset: probe_check.check_adam(
-            dispatch.adam_stream_step_, r, n, s, o, "cpu")
+    for name, tables in probe_check.ADAM_CASES.items():
+        if sum(n for n, _, _ in tables) <= 2_000_000:  # the 26 bench tables only on the card
+            yield f"adam {name}", lambda r, t=tables: probe_check.check_adam(
+                dispatch.adam_stream_pass_, r, t, "cpu")
     for name, (n, w, offset) in probe_check.PERROW_CASES.items():
         if n <= 1000:  # the plain walk is a Python loop
             yield f"perrow {name}", lambda r, n=n, w=w, o=offset: probe_check.check_perrow(
