@@ -37,10 +37,12 @@ checkout.  Phases, one JSON line each:
 7. flash check -- the flash-attention forward and backward kernels against
                 their plain versions (flash_check.py) at the SASRec bench
                 shape (B·H = 512, S = 512, head dim 32), a ragged S = 300,
-                S = 2048 on 16 sequences and head dim 64 with one head;
+                S = 2048 on 16 sequences, head dim 64 with one head,
+                AutoInt's (4096 and 512, 2, 39, 8), S = 63, 64, 65, 127
+                and 129 at head dim 32 and S = 40, 64 at head dim 128;
                 causal on and off; no mask, a random key mask and
-                front-padded histories; each limit shown to reject a wrong
-                result.
+                front-padded histories; each limit shown to reject three
+                wrong results (two tile faults, single-pass TF32).
 8. sasrec serve -- SASRec at the bench.py widths (50,000 items, D = 64, 2
                 blocks, 2 heads, max_len 512), weights made from the seed in
                 the JAX layout and converted, served by Trainer.predict over
@@ -55,8 +57,10 @@ checkout.  Phases, one JSON line each:
 10. sasrec cli -- the cli sasrec flow: synthetic ratings, the numpy
                 dataset builder at max_len 50, fit for 2 epochs, predict and
                 HR@10, on the kernels.
-11. flash timing -- kernel, plain and torch SDPA ms with the bounds, at
-                S = 512 (B = 256) and S = 2048 (B = 32).
+11. flash timing -- kernel, plain and torch SDPA ms at S = 512 (B = 256)
+                and S = 2048 (B = 32; the kernels also at B = 256), beside
+                the split-TF32 bound (3 TF32 products an f32 product at 495
+                TFLOP/s) and the CUDA cores' f32 bound (67 TFLOP/s).
 12. youtube data -- realistic_ratings at the protocol seqret widths (20,000
                 items, users cut to 20,000) and the numpy retrieval dataset
                 at max_len 50.
@@ -100,7 +104,8 @@ checkout.  Phases, one JSON line each:
                 rows cut to 200,000; every test AUC must be above 0.55.
 21. ctr timing -- kernel, plain and bound ms of the bi-interaction at FM's
                 and DeepFM's serving shapes; the flash kernels beside torch
-                SDPA at AutoInt's (4096, 2, 39, 8).
+                SDPA at AutoInt's (4096, 2, 39, 8) and its train step's
+                (512, 2, 39, 8), with both bounds.
 22. probe check -- the three probe kernels (elementwise Adam stream, per-row
                 walk, hot gather) against their plain versions bit for bit
                 (probe_check.py): ragged, bench-table and misaligned Adam
@@ -147,6 +152,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+# TF32 tensor cores.  The flash kernels keep f32 accuracy by splitting each
+# operand into two TF32 parts, three TF32 products for each f32 product: their
+# bound counts 3 x the operations at this rate (the CUDA-core bound beside it
+# as f32_core_bound_ms).
+TF32_FLOPS = 495e12
 
 BATCH = 16384          # one request, the bench batch
 MICROBATCH = 4         # dense_microbatch: 4096-row slices reach the kernels
@@ -1054,7 +1064,11 @@ def phase_flash_check(rng, dev) -> dict:
               (64, SAS_HEADS, 300, SAS_DIM // SAS_HEADS),
               (SAS_LONG_CHECK, SAS_HEADS, SAS_LONG, SAS_DIM // SAS_HEADS),
               (128, 1, 50, SAS_DIM),  # the cli sasrec shape
-              (CTR_REQUEST, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2)]  # AutoInt's
+              (CTR_REQUEST, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2),  # AutoInt's
+              (CTR_BATCH, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2),  # its train step
+              # both sides of the short route (S <= 64) and of a 128-row block
+              *((16, 2, s, 32) for s in (63, 64, 65, 127, 129)),
+              (8, 2, 64, 128), (8, 2, 40, 128)]
     for (b, h, s, d), causal, kind in itertools.product(shapes, (False, True),
                                                        flash_check.MASKS):
         q, k, v, do, mask = flash_check.inputs(rng, b, h, s, d, kind, dev)
@@ -1386,6 +1400,15 @@ def attention_work(b, h, s, d, passes, tensors) -> tuple[float, float]:
             passes * 2 * d * pairs * b * h)
 
 
+def flash_bounds(kind, bytes_moved, operations) -> dict:
+    """The flash bounds of one kernel: split TF32 (3 x the operations on the
+    TF32 tensor cores) as ``{kind}_bound_ms``, and the CUDA cores' exact f32
+    as ``{kind}_f32_core_bound_ms``."""
+    ms, by = bound(bytes_moved, 3 * operations, TF32_FLOPS)
+    return {f"{kind}_bound_ms": ms, f"{kind}_bound_by": by,
+            f"{kind}_f32_core_bound_ms": bound(bytes_moved, operations, F32_FLOPS)[0]}
+
+
 def phase_flash_timing(rng, dev) -> dict:
     """Kernel, plain and torch SDPA ms of the flash forward and backward,
     causal with every key kept (bench.py's full histories), at S = 512
@@ -1427,10 +1450,9 @@ def phase_flash_timing(rng, dev) -> dict:
         t["fwd_plus_bwd_ms"] = t["fwd_ms"] + t["bwd_ms"]
         prof = profile_call(lambda: (lib_fwd(), torch.cuda.synchronize()))
         t["library_kernels"] = [r["name"] for r in prof["top"][:3]]
-        by, op = attention_work(b, h, s, d, 2, 4)
-        t["fwd_bound_ms"], t["fwd_bound_by"] = bound(by, op, F32_FLOPS)
-        by, op = attention_work(b, h, s, d, 5, 8)
-        t["bwd_bound_ms"], t["bwd_bound_by"] = bound(by, op, F32_FLOPS)
+        for kind, passes, tensors in (("fwd", 2, 4), ("bwd", 5, 8)):
+            by, op = attention_work(b, h, s, d, passes, tensors)
+            t.update(flash_bounds(kind, by, op))
         if s == SAS_LONG:  # the training batch, through the kernels only
             qb, kb, vb, dob = (torch.from_numpy(rng.standard_normal(
                 (SAS_BATCH, h, s, d), dtype=np.float32)).to(dev) for _ in range(4))
@@ -1440,6 +1462,9 @@ def phase_flash_timing(rng, dev) -> dict:
                 lambda: dispatch.flash_attention_fwd(qb, kb, vb, mb, True), 5, 1)
             t[f"bwd_ms_b{SAS_BATCH}"] = cuda_ms(
                 lambda: dispatch.flash_attention_bwd(qb, kb, vb, mb, ob, lb, dob, True), 3, 1)
+            for kind, passes, tensors in (("fwd", 2, 4), ("bwd", 5, 8)):
+                bounds = flash_bounds(kind, *attention_work(SAS_BATCH, h, s, d, passes, tensors))
+                t.update({f"{n}_b{SAS_BATCH}": x for n, x in bounds.items()})
             del qb, kb, vb, dob, ob
         emit({"phase": "timing", "kernel": "flash_attention", "shape": [b, h, s, d],
               "causal": True, "dtype": "f32", **t})
@@ -1450,10 +1475,12 @@ def phase_flash_timing(rng, dev) -> dict:
     return {"flash_attention_fwd": {"ms": t["fwd_ms"], "plain_ms": t["plain_fwd_ms"],
                                     "bound_ms": t["fwd_bound_ms"],
                                     "bound_by": t["fwd_bound_by"],
+                                    "f32_core_bound_ms": t["fwd_f32_core_bound_ms"],
                                     "library_ms": t["library_fwd_ms"]},
             "flash_attention_bwd": {"ms": t["bwd_ms"], "plain_ms": t["plain_bwd_ms"],
                                     "bound_ms": t["bwd_bound_ms"],
                                     "bound_by": t["bwd_bound_by"],
+                                    "f32_core_bound_ms": t["bwd_f32_core_bound_ms"],
                                     "library_ms": t["library_fwd_bwd_ms"]}}
 
 
@@ -2074,12 +2101,10 @@ def phase_ctr_protocol(dev) -> dict:
 def phase_ctr_timing(rng, dev) -> dict:
     """Kernel, plain and bound ms of the bi-interaction at FM's and DeepFM's
     serving shapes (4096 x 39 and x 26 fields x 16, f32); the flash forward
-    and backward beside torch SDPA at AutoInt's (4096, 2, 39, 8), no mask,
-    not causal."""
+    and backward beside torch SDPA at AutoInt's serving request (4096, 2,
+    39, 8) and train step (512, 2, 39, 8)."""
     import torch
-    import torch.nn.functional as F
 
-    from recsys_tpu_torch.kernels import attention as attn
     from recsys_tpu_torch.kernels import dispatch
     from recsys_tpu_torch.kernels.interactions import fm_pairwise_vector
 
@@ -2098,7 +2123,22 @@ def phase_ctr_timing(rng, dev) -> dict:
         res[f"fm_pairwise_vector {name}"] = t
     res["fm_pairwise_vector"] = res["fm_pairwise_vector fm"]
 
-    b, h, s, d = CTR_REQUEST, 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2
+    for b in (CTR_REQUEST, CTR_BATCH):  # a serving request and a train step
+        label = "flash_attention autoint" + ("" if b == CTR_REQUEST else f" b{b}")
+        res[label] = flash_autoint_timing(rng, dev, b)
+    return res
+
+
+def flash_autoint_timing(rng, dev, b) -> dict:
+    """The flash forward and backward beside torch SDPA at AutoInt's
+    (b, 2, 39, 8), no mask, not causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from recsys_tpu_torch.kernels import attention as attn
+    from recsys_tpu_torch.kernels import dispatch
+
+    h, s, d = 2, NUM_SPARSE + NUM_DENSE, EMBED_DIM // 2
     q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32))
                    .to(dev) for _ in range(4))
     out, lse = dispatch.flash_attention_fwd(q, k, v)
@@ -2121,14 +2161,11 @@ def phase_ctr_timing(rng, dev) -> dict:
     # and 5 backward; the (B, H, S, D) f32 tensors q, k, v, out (and do, dq,
     # dk, dv backward) and lse once each
     pairs = b * h * s * s
-    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(4 * (4 * b * h * s * d + b * h * s),
-                                                 2 * 2 * d * pairs, F32_FLOPS)
-    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(4 * (8 * b * h * s * d + b * h * s),
-                                                 5 * 2 * d * pairs, F32_FLOPS)
+    t.update(flash_bounds("fwd", 4 * (4 * b * h * s * d + b * h * s), 2 * 2 * d * pairs))
+    t.update(flash_bounds("bwd", 4 * (8 * b * h * s * d + b * h * s), 5 * 2 * d * pairs))
     emit({"phase": "timing", "kernel": "flash_attention autoint", "shape": [b, h, s, d],
           "causal": False, "mask": None, "dtype": "f32", **t})
-    res["flash_attention autoint"] = t
-    return res
+    return t
 
 
 # -- the single-card probes ----------------------------------------------------

@@ -1,19 +1,22 @@
 """How the flash-attention kernels are held against their plain versions,
 shared by chip_smoke.py and tests/test_torch_cuda.py (imports no JAX).
 
-The kernels and the plain versions (recsys_tpu_torch/kernels/attention.py)
-both compute in exact f32 and differ only in the order of their sums: the
-kernel's online softmax over 64-key tiles against one softmax over every
-key.  Against the same formulas in float64 the plain version is within
-1e-5 absolute plus 1e-5 relative (tests/test_torch_attention.py): a
-gradient summed over hundreds of rows can be large, and elements near zero
-after cancellation have large relative errors.  The limits below are at
-least five times that distance.
+The plain versions (recsys_tpu_torch/kernels/attention.py) compute in
+exact f32.  The kernels compute every product in split TF32 on the tensor
+cores (three TF32 products with f32 accumulation, accurate to about 2^-22
+of each product, kernels/csrc/flash_tiles.cuh), with the online softmax
+over key tiles against one softmax over every key.  Against the same
+formulas in float64 the plain version is within 1e-5 absolute plus 1e-5
+relative (tests/test_torch_attention.py): a gradient summed over hundreds
+of rows can be large, and elements near zero after cancellation have large
+relative errors.  The limits below are at least five times that distance.
 
-Each limit must also fail a wrong result.  The wrong results are the plain
+Each limit must also fail a wrong result.  Two wrong results are the plain
 version with one deliberate fault in its (query, key) mask, the faults a
 tile kernel can make: the last key tile left out, and (with causal masking)
-the diagonal tile left unmasked.  The backward's wrong results use the
+the diagonal tile left unmasked.  The third is the plain version on q, k,
+v and dO rounded to TF32, what a kernel that drops the split's small terms
+computes: single-pass TF32 products.  The backward's wrong results use the
 right residuals (out, lse), as a faulty backward kernel would.
 """
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from recsys_tpu_torch.kernels import attention as attn
 
-TILE = 64  # the kernels' tile of keys and queries
+TILE = 32  # the long-sequence kernels' key tile (and the dk/dv query tile) at D <= 32
 OUT_TOL = dict(rtol=1e-4, atol=2e-5)
 LSE_TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=5e-5)
@@ -65,6 +68,33 @@ def wrong_keeps(mask, s, causal, device) -> dict:
     return out
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low
+    mantissa bits dropped, to nearest with ties away from zero (adding half
+    a TF32 ulp to the magnitude bits carries into the exponent where it
+    must).  Integer bit operations, so it runs alike on CPU and CUDA."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def float64_reference(q, k, v, do, mask, causal) -> dict:
+    """out, lse, dq, dk and dv by the flash formulas in float64 (a row with no
+    key to attend gives 0, lse NEG_INF and no gradient)."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    sq, sk, scale = q.shape[2], k.shape[2], attn.softmax_scale(q.shape[-1])
+    keep = attn.keep_mask(mask, sq, sk, causal, q.device)
+    if keep is None:
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    s = torch.where(keep, q @ k.transpose(-1, -2) * scale, attn.NEG_INF)
+    live = keep.any(-1, keepdim=True)
+    lse = torch.where(live, torch.logsumexp(s, -1, keepdim=True), attn.NEG_INF)
+    p = torch.where(keep & live, torch.exp(s - lse), 0.0)
+    out = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (do * out).sum(-1, keepdim=True))
+    return {"out": out, "lse": lse[..., 0], "dq": ds @ k * scale,
+            "dk": ds.transpose(-1, -2) @ q * scale, "dv": p.transpose(-1, -2) @ do}
+
+
 def _close(got, want, tol) -> bool:
     return got.shape == want.shape and bool(
         (torch.isclose(got.double(), want.double(), **tol) & torch.isfinite(got)).all())
@@ -85,10 +115,14 @@ def check(q, k, v, do, mask, causal, fwd, bwd) -> dict:
     got.update(zip(("dq", "dk", "dv"), bwd(q, k, v, mask, out, lse, do, causal)))
     res = {"errors": {n: float((got[n].double() - want[n].double()).abs().max()) for n in want},
            "within": {n: _close(got[n], want[n], TOLS[n]) for n in want}, "wrong": {}}
-    for fault, wkeep in wrong_keeps(mask, s, causal, q.device).items():
-        wout, wlse = attn.masked_fwd(q, k, v, wkeep)
+    tf32 = [round_tf32(t) for t in (q, k, v, do)]
+    faults = [(fault, (q, k, v, do), wkeep)
+              for fault, wkeep in wrong_keeps(mask, s, causal, q.device).items()]
+    faults.append(("products in single-pass TF32", tf32, keep))
+    for fault, (wq, wk, wv, wdo), wkeep in faults:
+        wout, wlse = attn.masked_fwd(wq, wk, wv, wkeep)
         wrong = {"out": wout, "lse": wlse, **dict(zip(
-            ("dq", "dk", "dv"), attn.masked_bwd(q, k, v, wkeep, out, lse, do)))}
+            ("dq", "dk", "dv"), attn.masked_bwd(wq, wk, wv, wkeep, out, lse, wdo)))}
         res["wrong"][fault] = {
             "errors": {n: float((wrong[n].double() - want[n].double()).abs().max())
                        for n in want},

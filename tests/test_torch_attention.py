@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import flash_check
 from recsys_tpu.kernels import attention as jax_attn
 from recsys_tpu.kernels import dispatch as jax_dispatch
 from recsys_tpu.kernels.pallas import attention_tpu
@@ -203,3 +204,54 @@ def test_cpu_tensors_take_the_plain_attention_and_launch_nothing():
 def test_attention_wrappers_refuse_bad_inputs(bad, err):
     with pytest.raises(err):
         bad()
+
+
+def test_round_tf32_rounds_as_cvt_rna():
+    """flash_check.round_tf32 (integer bit operations) against the same
+    rounding in float64: to the nearest multiple of 2^(e - 10), ties away from
+    zero, over eleven binades, both signs and the halfway cases."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal(20000) * 10.0 ** rng.integers(-6, 6, 20000)).astype(np.float32)
+    x = np.concatenate([x, np.float32([1 + 2**-11, -(1 + 2**-11), 1 + 2**-11 - 2**-23,
+                                       2 - 2**-12, 3.0, 0.0, -2.0])])
+    got = flash_check.round_tf32(torch.from_numpy(x)).numpy()
+    ax = np.abs(x.astype(np.float64))
+    ulp = 2.0 ** (np.floor(np.log2(np.where(ax > 0, ax, 1.0))) - 10)
+    want = (np.sign(x) * np.floor(ax / ulp + 0.5) * ulp).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert not (got.view(np.int32) & 0x1FFF).any()
+    assert got[-7] == np.float32(1 + 2**-10) and got[-6] == -np.float32(1 + 2**-10)
+
+
+@pytest.mark.parametrize("mask_kind", flash_check.MASKS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b, h, s, d", [(64, 2, 39, 8), (2, 2, 130, 32)])
+def test_every_card_limit_rejects_single_pass_tf32(b, h, s, d, causal, mask_kind):
+    """flash_check.check with the plain versions standing in for the kernels
+    (CPU tensors): they pass, and every limit rejects each wrong result,
+    single-pass TF32 products among them, at AutoInt's S = 39 and over
+    several 32-key tiles."""
+    rng = np.random.default_rng(11)
+    q, k, v, do, mask = flash_check.inputs(rng, b, h, s, d, mask_kind, "cpu")
+    res = flash_check.check(q, k, v, do, mask, causal, dispatch.flash_attention_fwd,
+                            dispatch.flash_attention_bwd)
+    assert res["wrong"]["products in single-pass TF32"]["rejected"], res["wrong"]
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_float64_reference_matches_the_plain_versions(causal):
+    """flash_check.float64_reference, the card's accuracy yardstick, against
+    the plain f32 versions, with a history of one item and an empty one."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((3, 2, 70, 16)).astype(np.float32))
+                   for _ in range(4))
+    mask = torch.from_numpy((np.arange(70)[None, :] >= 70 - np.array([70, 1, 0])[:, None])
+                            .astype(np.int32))
+    want = flash_check.float64_reference(q, k, v, do, mask, causal)
+    out, lse = attn.flash_attention_fwd(q, k, v, mask, causal)
+    got = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                   (out, lse, *attn.flash_attention_bwd(q, k, v, mask, out, lse, do, causal))))
+    for name, w in want.items():
+        assert w.dtype == torch.float64
+        torch.testing.assert_close(got[name].double(), w, rtol=1e-5, atol=1e-5)

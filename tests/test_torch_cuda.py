@@ -22,6 +22,7 @@ import probe_check
 import retrieval_check
 from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
+from recsys_tpu_torch.kernels import attention as attn
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
 from recsys_tpu_torch.kernels.interactions import dot_interaction
@@ -289,11 +290,17 @@ def test_train_step_on_card_matches_cpu(cuda, opt):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b, h, s, d", [(256, 2, 512, 32), (64, 2, 300, 32), (16, 2, 2048, 32),
                                         (128, 1, 50, 64), (3, 3, 77, 8), (2, 2, 130, 128),
-                                        (1, 1, 1, 16)])
+                                        (1, 1, 1, 16), (512, 2, 39, 8), (4, 2, 63, 32),
+                                        (4, 2, 64, 32), (4, 2, 65, 32), (4, 2, 127, 32),
+                                        (4, 2, 129, 32), (3, 2, 64, 128), (3, 2, 40, 128)])
 def test_flash_attention_kernels_match_plain(cuda, mask_kind, causal, b, h, s, d):
     """flash_check.check: out, lse, dq, dk and dv within their limits, and
-    each limit rejects the plain version with a faulty mask (with one key,
-    dq and dk are 0 whatever the mask, so there only the limits)."""
+    each limit rejects the three wrong results (with one key, dq and dk are
+    0 whatever the mask, so there only the limits).  The shapes reach both
+    geometries of the kernels (whole heads at S <= 64 and D <= 64, key
+    tiles above) and their edges: AutoInt's train step, S on both sides of
+    the short route (63, 64, 65) and of a 128-row block (127, 129), D = 128
+    at short S."""
     rng = np.random.default_rng(10)
     q, k, v, do, mask = flash_check.inputs(rng, b, h, s, d, mask_kind, cuda)
     before = dict(dispatch.LAUNCHES)
@@ -304,6 +311,45 @@ def test_flash_attention_kernels_match_plain(cuda, mask_kind, causal, b, h, s, d
     assert dispatch.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     assert all(res["within"].values()), res
     assert s == 1 or res["ok"], res
+
+
+@pytest.mark.parametrize("b, h, s, d, causal, mask_kind", [(64, 2, 512, 32, True, "front-padded"),
+                                                          (512, 2, 39, 8, False, "none"),
+                                                          (8, 2, 129, 128, True, "random")])
+def test_flash_attention_kernels_are_deterministic(cuda, b, h, s, d, causal, mask_kind):
+    """Every sum has one owner (no atomics): two launches give the same bits."""
+    q, k, v, do, mask = flash_check.inputs(np.random.default_rng(13), b, h, s, d, mask_kind,
+                                           cuda)
+    first = dispatch.flash_attention_fwd(q, k, v, mask, causal)
+    again = dispatch.flash_attention_fwd(q, k, v, mask, causal)
+    grads = [dispatch.flash_attention_bwd(q, k, v, mask, *first, do, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip((*first, *grads[0]), (*again, *grads[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b, h, s, d, causal, mask_kind", [(256, 2, 512, 32, True, "front-padded"),
+                                                          (4096, 2, 39, 8, False, "none")])
+def test_flash_attention_error_is_within_twice_the_plain_versions(cuda, b, h, s, d, causal,
+                                                                  mask_kind):
+    """The kernels' split-TF32 products keep f32 accuracy: against the same
+    formulas in float64 (flash_check.float64_reference), each of out, lse,
+    dq, dk and dv is at most twice as far off as the plain f32 versions,
+    each pipeline's backward taking its own forward's residuals.  SASRec's
+    and AutoInt's shapes."""
+    q, k, v, do, mask = flash_check.inputs(np.random.default_rng(14), b, h, s, d, mask_kind,
+                                           cuda)
+    want = flash_check.float64_reference(q, k, v, do, mask, causal)
+    errors = {}
+    for name, fwd, bwd in (("plain", attn.flash_attention_fwd, attn.flash_attention_bwd),
+                           ("kernel", dispatch.flash_attention_fwd,
+                            dispatch.flash_attention_bwd)):
+        out, lse = fwd(q, k, v, mask, causal)
+        got = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                       (out, lse, *bwd(q, k, v, mask, out, lse, do, causal))))
+        errors[name] = {n: float((got[n].double() - w).abs().max()) for n, w in want.items()}
+    for n in want:
+        assert errors["kernel"][n] <= 2 * errors["plain"][n], (n, errors)
 
 
 def test_flash_attention_kernels_refuse_what_they_cannot_take(cuda):
