@@ -21,7 +21,8 @@ checkout.  Phases, one JSON line each:
                 compute, 4 dense microbatches), weights made from the seed in
                 the JAX package's layout and converted with params_from_jax,
                 served by Trainer.predict over 16384-row requests plus a
-                ragged tail, with fused_mlps off and on.  Launch counts are
+                ragged tail, with fused_mlps off and on (their request times
+                side by side).  Launch counts are
                 zeroed before each run and read after it; the logits are
                 held against the same model run through the plain versions.
 5. train     -- the same DLRM trained by Trainer.fit for one epoch of
@@ -32,6 +33,10 @@ checkout.  Phases, one JSON line each:
                 of the state; step time, examples/s, peak memory and a
                 profile of one step.
 6. timing    -- per-kernel ms beside its bound and the plain version's ms;
+                the fused MLPs per tower with the unfused cuBLAS tower
+                (unfused_ms) and each launch apart (pre-pass, chain, dW),
+                with the cluster size C, the clusters the card holds at
+                once and kernel B's batch slices S;
                 the embedding updates over 26 tables in turn, as a step
                 calls them.
 7. flash check -- the flash-attention forward and backward kernels against
@@ -400,8 +405,9 @@ def phase_check(rng, dev) -> dict:
 def check_mlp_bwd(rng, dev) -> float:
     """fused_mlp_backward against mlp_backward for both towers at 4096 and
     1000 rows, f32 and bf16, in the two checks of mlp_bwd_check.py: on
-    integer values bit for bit, where a dW scaled by 0.9 or missing one
-    32-row step of its batch sum must not pass; and on random weights, dW
+    integer values bit for bit, where a dW scaled by 0.9, missing one
+    32-row step of its batch sum or missing the first of kernel B's batch
+    slices (dispatch.mlp_bwd_split) must not pass; and on random weights, dW
     and db to a share of their terms (f32) or by their norm (bf16), with
     the distance of the kernel and of the plain version from the same chain
     summed in float64.  Returns the worst dx abs error in bf16 on random
@@ -415,12 +421,14 @@ def check_mlp_bwd(rng, dev) -> float:
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     worst = 0.0
     f = NUM_SPARSE + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, dims in (("bottom", [NUM_DENSE, *BOTTOM, EMBED_DIM]),
                        ("top", [EMBED_DIM + f * (f - 1) // 2, *TOP, 1])):
         ws, bs = mlp_weights(rng, dims)
         tw = [to(w) for w in ws]
         tb = [to(v[None]) for v in bs]
         for b in (BATCH // MICROBATCH, 1000):
+            split, rows = dispatch.mlp_bwd_split(dims, b, sms)
             xe, ge, we, be = chk.exact_case(rng, b, dims)
             xe, ge, we, be = to(xe), to(ge), [to(w) for w in we], [to(v) for v in be]
             top = chk.largest_term_sum(xe, ge, we, be)
@@ -431,12 +439,14 @@ def check_mlp_bwd(rng, dev) -> float:
                 same = all(torch.equal(u, v) for u, v in
                            zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]))
                 step = mlp_backward(xe[:32], ge[:32], we, be, mm_bf16)[1]
+                first = mlp_backward(xe[:rows], ge[:rows], we, be, mm_bf16)[1]
                 caught = all(not torch.equal(0.9 * u, v) and not torch.equal(u - s32, v)
-                             for u, v, s32 in zip(got[1], want[1], step))
+                             and not torch.equal(u - sl, v)
+                             for u, v, s32, sl in zip(got[1], want[1], step, first))
                 ok = same and caught and top < chk.EXACT_LIMIT
                 emit({"phase": "check", "case": case + " integer values", "bit_equal": same,
-                      "wrong_dw_caught": caught, "largest_term_sum": top,
-                      "exact_below": chk.EXACT_LIMIT, "ok": ok})
+                      "wrong_dw_caught": caught, "dw_slices": [split, rows],
+                      "largest_term_sum": top, "exact_below": chk.EXACT_LIMIT, "ok": ok})
                 if not ok:
                     raise AssertionError(f"{case}: not bit-equal to the plain version on "
                                          "integer values, or a wrong dW passes")
@@ -459,6 +469,8 @@ def check_mlp_bwd(rng, dev) -> float:
                 norm = lambda res, ref: max(chk.norm_err(u, v) for u, v in  # noqa: E731
                                             zip(res[1] + res[2], ref[1] + ref[2]))
                 step = mlp_backward(x[:32], g[:32], tw, tb, mm_bf16)[1]
+                kept_rows = dispatch.mlp_bwd_split(dims, x.shape[0], sms)[1]
+                first = mlp_backward(x[:kept_rows], g[:kept_rows], tw, tb, mm_bf16)[1]
                 line = {"phase": "check", "case": case + " dW db",
                         "worst_norm_err": norm(got, want),
                         "kernel_vs_f64_chain_norm_err": norm(got, exact),
@@ -471,6 +483,8 @@ def check_mlp_bwd(rng, dev) -> float:
                             zip(want[1] + want[2], exact[1] + exact[2], sw + sb)),
                         "dw_32_rows_left_out_least_norm_err": min(
                             chk.norm_err(u - s32, v) for u, v, s32 in zip(got[1], want[1], step)),
+                        "dw_first_slice_left_out_least_norm_err": min(
+                            chk.norm_err(u - sl, v) for u, v, sl in zip(got[1], want[1], first)),
                         "rows_at_a_kink_left_out": b - int(keep.sum())}
                 if mm_bf16:
                     line["norm_limit"] = chk.BF16_NORM_RTOL
@@ -788,6 +802,9 @@ def phase_serve(params, dev) -> dict:
         results[name] = res
         del model, trainer
         torch.cuda.empty_cache()
+    emit({"phase": "serve", "fused_mlps_off_on": {
+        k: [results[f"fused_mlps={f}"][k] for f in (False, True)]
+        for k in ("request_ms_median", "request_ms_min", "examples_per_s")}})
     return results
 
 
@@ -933,7 +950,54 @@ def phase_train(params, dev) -> dict:
         results[name] = res
         del model, trainer
         torch.cuda.empty_cache()
+    emit({"phase": "train", "fused_adam fused_mlps_off_on": {
+        k: [results[f"fused_adam fused_mlps={f}"][k] for f in (False, True)]
+        for k in ("step_ms_median", "step_ms_min", "second_epoch_examples_per_s")}})
     return results
+
+
+def mlp_part_ms(x, g, ws, bs) -> dict:
+    """ms of each launch of the fused MLPs (bf16) apart: the pre-pass, the
+    chain, and the backward's dW pass with its slice sum; with the chain's
+    cluster size C, the clusters the card holds at once, and kernel B's
+    batch slices."""
+    from recsys_tpu_torch.kernels import dispatch
+
+    dims = [x.shape[1], *(w.shape[1] for w in ws)]
+    fwd, _ = dispatch.mlp_forward_call(x, ws, bs)
+    bwd, bb = dispatch.mlp_backward_call(x, g, ws, bs)
+    fwd(dispatch.MLP_PACK)
+    bwd(dispatch.MLP_PACK | dispatch.MLP_CHAIN)
+    cluster, fwd_active = dispatch.mlp_chain_clusters(dims)
+    return {"cluster": cluster, "fwd_active_clusters": fwd_active,
+            "bwd_active_clusters": dispatch.mlp_chain_clusters(dims, backward=True)[1],
+            "fwd_pack_ms": cuda_ms(lambda: fwd(dispatch.MLP_PACK)),
+            "fwd_chain_ms": cuda_ms(lambda: fwd(dispatch.MLP_CHAIN)),
+            "bwd_pack_ms": cuda_ms(lambda: bwd(dispatch.MLP_PACK)),
+            "bwd_chain_ms": cuda_ms(lambda: bwd(dispatch.MLP_CHAIN)),
+            "bwd_dw_ms": cuda_ms(lambda: bwd(dispatch.MLP_DW)),
+            "split": bb["split"], "split_rows": bb["split_rows"]}
+
+
+def unfused_mlp_ms(x, g, dims) -> float:
+    """ms of the tower as ``fused_mlps=False`` runs it: ``ops/mlp.py::MLP``
+    in bf16 (cuBLAS products), forward, or with ``g`` forward plus backward
+    through autograd with dx."""
+    import torch
+
+    from recsys_tpu_torch.ops.mlp import MLP
+
+    m = MLP(dims[0], dims[1:-1], out_dim=dims[-1], dtype=torch.bfloat16, device=x.device)
+    if g is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: m(x))
+    xg = x.detach().clone().requires_grad_(True)
+
+    def fwd_bwd():
+        out = m(xg)
+        out.backward(g.to(out.dtype))
+
+    return cuda_ms(fwd_bwd)
 
 
 def phase_timing(rng, dev) -> dict:
@@ -960,8 +1024,10 @@ def phase_timing(rng, dev) -> dict:
            "shape": [b, f, EMBED_DIM], "dtype": "bf16"}
     emit({"phase": "timing", "kernel": "dot_interaction", **dot})
 
-    # one bottom and one top tower per microbatch, as the path launches them
-    mlp = {"ms": 0.0, "plain_ms": 0.0, "towers": {}}
+    # one bottom and one top tower per microbatch, as the path launches them;
+    # unfused_ms is the tower as fused_mlps=False runs it (ops/mlp.py::MLP in
+    # bf16, cuBLAS products), no one PyTorch call
+    mlp = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "towers": {}}
     total_bytes = total_ops = 0.0
     for name, dims in (("bottom", [NUM_DENSE, *BOTTOM, EMBED_DIM]),
                        ("top", [EMBED_DIM + p, *TOP, 1])):
@@ -972,19 +1038,21 @@ def phase_timing(rng, dev) -> dict:
         t = {"ms": cuda_ms(lambda: dispatch.fused_mlp_forward(xm, tw, tb, True)),
              "plain_ms": cuda_ms(lambda: mlp_forward(xm, tw, tb, True)),
              "f32_ms": cuda_ms(lambda: dispatch.fused_mlp_forward(xm, tw, tb, False),
-                               iters=10, warmup=2)}
+                               iters=10, warmup=2),
+             "unfused_ms": unfused_mlp_ms(xm, None, dims)}
         by, op = mlp_work(b, dims)
         t["bound_ms"], t["bound_by"] = bound(by, op, BF16_FLOPS)
         emit({"phase": "timing", "kernel": f"mlp_fwd {name}", "dims": dims, **t})
         mlp["towers"][name] = t
-        mlp["ms"] += t["ms"]
-        mlp["plain_ms"] += t["plain_ms"]
+        for k in ("ms", "plain_ms", "unfused_ms"):
+            mlp[k] += t[k]
         total_bytes, total_ops = total_bytes + by, total_ops + op
     mlp["bound_ms"], mlp["bound_by"] = bound(total_bytes, total_ops, BF16_FLOPS)
     mlp["library_ms"] = None
 
-    # the backward, bf16, one bottom and one top tower per microbatch
-    bwd = {"ms": 0.0, "plain_ms": 0.0, "towers": {}}
+    # the backward, bf16, one bottom and one top tower per microbatch; its
+    # unfused_ms is the unfused tower's forward and backward through autograd
+    bwd = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "towers": {}}
     total_bytes = total_ops = 0.0
     for name, dims in (("bottom", [NUM_DENSE, *BOTTOM, EMBED_DIM]),
                        ("top", [EMBED_DIM + p, *TOP, 1])):
@@ -996,13 +1064,23 @@ def phase_timing(rng, dev) -> dict:
         t = {"ms": cuda_ms(lambda: dispatch.fused_mlp_backward(xm, gm, tw, tb, True)),
              "plain_ms": cuda_ms(lambda: mlp_backward(xm, gm, tw, tb, True)),
              "f32_ms": cuda_ms(lambda: dispatch.fused_mlp_backward(xm, gm, tw, tb, False),
-                               iters=10, warmup=2)}
+                               iters=10, warmup=2),
+             "unfused_ms": unfused_mlp_ms(xm, gm, dims)}
         by, op = mlp_bwd_work(b, dims)
         t["bound_ms"], t["bound_by"] = bound(by, op, BF16_FLOPS)
+        # each launch apart (the pre-pass, the chain, the dW pass with its
+        # slice sum), C, the clusters the card holds at once, and S
+        parts = mlp_part_ms(xm, gm, tw, tb)
+        emit({"phase": "timing", "kernel": f"mlp parts {name}", "dims": dims, **parts})
+        t.update({k: parts[k] for k in ("cluster", "bwd_active_clusters", "split",
+                                        "split_rows", "bwd_pack_ms", "bwd_chain_ms",
+                                        "bwd_dw_ms")})
+        mlp["towers"][name].update({k: parts[k] for k in ("fwd_active_clusters",
+                                                          "fwd_pack_ms", "fwd_chain_ms")})
         emit({"phase": "timing", "kernel": f"mlp_bwd {name}", "dims": dims, **t})
         bwd["towers"][name] = t
-        bwd["ms"] += t["ms"]
-        bwd["plain_ms"] += t["plain_ms"]
+        for k in ("ms", "plain_ms", "unfused_ms"):
+            bwd[k] += t[k]
         total_bytes, total_ops = total_bytes + by, total_ops + op
     bwd["bound_ms"], bwd["bound_by"] = bound(total_bytes, total_ops, BF16_FLOPS)
     bwd["library_ms"] = None
@@ -2448,6 +2526,7 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            **({"unfused_ms": t["unfused_ms"]} if "unfused_ms" in t else {}),
         })
     print(card["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

@@ -37,12 +37,14 @@ SIGNATURES = {
     },
     "mlp_fwd": {
         "mlp_fwd_smem_bytes": (ctypes.c_longlong, [_P, _I, _I]),
-        "mlp_fwd_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "mlp_fwd_max_active_clusters": (_I, [_P, _I, _P]),
+        "mlp_fwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     },
     "mlp_bwd": {
         "mlp_bwd_smem_bytes": (ctypes.c_longlong, [_P, _I, _I]),
-        "mlp_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _P]),
+        "mlp_bwd_max_active_clusters": (_I, [_P, _I, _P]),
+        "mlp_bwd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _P]),
     },
     "embedding_update": {
         "embedding_adam_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

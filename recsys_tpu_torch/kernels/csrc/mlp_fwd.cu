@@ -11,26 +11,43 @@
 // Bound on the H100: operations.  The DLRM top tower 367->1024->1024->512->
 // 256->1 is 2.08 M multiply-adds per example, ~17 GFLOP per 4096-row slice,
 // about 17 us at 989 TFLOP/s bf16; its weights (8.3 MB f32) and activations
-// are a few MB, so bytes bound it far less.
+// are a few MB, so device memory bounds it far less.
 //
-// Design: the TPU kernel kept every weight resident in VMEM; 227 KB of
-// shared memory cannot, but the weights fit the 50 MB L2.  So one block
-// owns a tile of batch rows for the whole stack: its hidden activations
-// live only in shared memory, in two ping-pong buffers (layer l reads one
-// and writes the other), and never reach device memory.  Weights stream
-// from L2 tile by tile, rounded to the matmul type as they are staged.
-// Bias, relu and the rounding are fused into the epilogue that writes the
-// next buffer (or the output, for the last layer).
-//   bf16: 32-row tiles, mma.sync m16n8k16 with f32 accumulators.  Weight
-//         tiles (64 x 128) are fetched with 16-byte loads into registers
-//         one tile ahead of the tensor cores, then rounded into a double
-//         buffer in shared memory; fragments come from ldmatrix (.trans
-//         for the k-major weight tile).  Row strides are padded so each
-//         ldmatrix phase touches all 32 banks once.
-//   f32:  16-row tiles, plain FMA on the CUDA cores (exact f32).
-// Every block re-reads all f32 weights from L2 (1 GB per 4096-row slice of
-// the top tower), and mma.sync reaches a fraction of the wgmma rate, so
-// this version sits well above the bound.
+// The TPU kernel kept every weight resident in VMEM; 227 KB of shared
+// memory cannot, so a CTA owns 32 batch rows for the whole stack (its
+// hidden activations live only in shared memory, in two ping-pong buffers,
+// and never reach device memory) and every weight streams past them.  (64
+// rows would feed the tensor cores twice as well, but two 64-row buffers of
+// the 1024-wide tower take 258 KB.)  f32 weights read from L2 by every CTA
+// would be 1.06 GB of L2 reads per 4096-row call of the top tower, each
+// rounded again in every CTA, so:
+//   1. A pre-pass (pack_tiles_kernel, mlp_tiles.cuh) rounds the weights to
+//      bf16 once a call and packs them as contiguous 64 x 128 tiles in the
+//      padded layout ldmatrix reads without bank conflicts, in the order
+//      the chain consumes them (4.5 MB for the top tower).
+//   2. The chain runs in thread block clusters of C = 2 CTAs (kCluster),
+//      each with its own 32-row tile.  Three producer threads a CTA, each in a
+//      warp of its own and issuing every third tile, keep a ring of up to 8
+//      tile slots full with multicast bulk copies, so each tile leaves L2
+//      once a cluster and lands in every CTA's slot.  Full and empty
+//      mbarriers hand the slots over; the consumer warps release a slot to
+//      the whole cluster.  The only block-wide barrier is one a layer,
+//      which orders the epilogue's writes before the next layer reads them.
+//   3. 16 consumer warps run mma.sync m16n8k16 (bf16 in, f32 accumulators)
+//      on ldmatrix fragments, four to a column tile, each with its A
+//      fragments loaded once a k tile; bias, relu and the rounding are
+//      fused into the epilogue that writes the next buffer (or the output).
+// Neither L2 nor its bandwidth bounds the chain.  The weights' delivery
+// alone (no products, no epilogue) takes over half the chain's time and
+// grows by under a fifth from 1024 rows to 4096 (four times the CTAs and
+// the L2 reads), at 2 ring stages or 5: what bounds it is the
+// latency of each tile's hand-over (the slot waits, the expected bytes,
+// the copy's issue), paid once a tile.  Hence 64-deep tiles (half the hand-overs of 32-deep
+// ones) and three producers walking the hand-overs side by side.  Beside
+// the hand-over, each CTA still streams the whole packed
+// stack past 32 rows, and mma.sync reaches a fraction of the wgmma rate.
+// The exact-f32 path (16-row tiles, FMA on the CUDA cores, the weights
+// staged from f32 in every block) is kept for its exact results.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,99 +66,53 @@ struct MlpArgs {
   int n_layers;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    mlp_fwd_bf16_kernel(const float* __restrict__ x, float* __restrict__ out,
-                        MlpArgs args, int B, int ld) {
+__global__ void __launch_bounds__(kChainThreads, 1)
+    mlp_fwd_bf16_kernel(const float* __restrict__ x, float* __restrict__ out, MlpArgs args,
+                        Chain chain, const __nv_bfloat16* __restrict__ tiles, int B, int ld,
+                        int stages) {
   constexpr int BM = kBMbf16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // two weight tiles (double buffer), then the two activation buffers
-  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* in = wbuf + 2 * kBKb * kWLd;  // [BM][ld]
-  __nv_bfloat16* nxt = in + BM * ld;           // [BM][ld]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring ring;
+  __nv_bfloat16* in = ring_setup(ring, smem, stages, ld);
+  __nv_bfloat16* nxt = in + BM * ld;
+  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, B - row0);
+  const int rows = min(BM, B - row0);  // <= 0 past the batch
 
-  // input tile, rounded to bf16; the columns up to the next multiple of 16
-  // are zero because each mma step reads 16 of them
-  const int d0 = args.dims[0];
-  const int d0p = (d0 + 15) & ~15;
-  for (int i = tid; i < BM * d0p; i += kThreads) {
-    const int r = i / d0p, c = i - r * d0p;
-    const float v =
-        (r < rows && c < d0) ? x[static_cast<size_t>(row0 + r) * d0 + c] : 0.f;
-    in[r * ld + c] = __float2bfloat16_rn(v);
-  }
-
-  for (int l = 0; l < args.n_layers; ++l) {
-    const int K = args.dims[l], N = args.dims[l + 1];
-    const int kp = (K + 15) & ~15;
-    const float* __restrict__ W = args.w[l];
-    const float* __restrict__ bias = args.b[l];
-    const bool last = l == args.n_layers - 1;
-    const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
-    // the layer is a sequence of tiles, k inner and n outer; tile t + 1 is
-    // fetched into registers while tile t feeds the tensor cores
-    const int nk = (kp + kBKb - 1) / kBKb;
-    const int tiles = nk * ((N + kBN - 1) / kBN);
-    float4 r[kTileRegs];
-    fetch_tile(r, W, K, N, 0, 0, vec);
-    store_tile(wbuf, r);
-    __syncthreads();  // also orders the previous layer's epilogue writes
-
-    float acc[2][2][4] = {};  // [m16 tile][n8 tile][fragment]
-    for (int t = 0; t < tiles; ++t) {
-      const int k0 = (t % nk) * kBKb, n0 = (t / nk) * kBN;
-      if (t + 1 < tiles)
-        fetch_tile(r, W, K, N, ((t + 1) % nk) * kBKb, ((t + 1) / nk) * kBN, vec);
-      const __nv_bfloat16* wt = wbuf + (t & 1) * kBKb * kWLd;
-      const int ksteps = min(kBKb, kp - k0);
-      for (int ks = 0; ks < ksteps; ks += 16) {
-        uint32_t a[2][4], b[4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], in + (mi * 16 + (lane & 15)) * ld + k0 + ks + (lane >> 4) * 8);
-        ldmatrix_x4_trans(b, wt + (ks + (lane & 15)) * kWLd + warp * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16_16816(acc[mi][0], a[mi], b[0], b[1]);
-          mma_bf16_16816(acc[mi][1], a[mi], b[2], b[3]);
-        }
-      }
-      if (t + 1 < tiles) store_tile(wbuf + ((t + 1) & 1) * kBKb * kWLd, r);
-
-      if (t % nk == nk - 1) {  // the n tile is complete: fused epilogue
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int rr = mi * 16 + gid + (e >> 1) * 8;
-              const int n = n0 + warp * 16 + ni * 8 + tig * 2 + (e & 1);
-              if (n < N) {
-                const float z = acc[mi][ni][e] + bias[n];
-                if (last) {
-                  if (rr < rows)
-                    out[static_cast<size_t>(row0 + rr) * N + n] =
-                        __bfloat162float(__float2bfloat16_rn(z));
-                } else {
-                  nxt[rr * ld + n] = __float2bfloat16_rn(relu(z));
-                }
-              } else if (!last && n < ld) {
-                // padding columns the next layer's last mma step reads
-                nxt[rr * ld + n] = __float2bfloat16_rn(0.f);
-              }
-              acc[mi][ni][e] = 0.f;
-            }
-      }
-      __syncthreads();
+  if (tid >= kConsumers) {
+    if ((tid & 31) == 0) produce(chain, tiles, ring);
+  } else {
+    // input tile, rounded to bf16; the columns up to the next multiple of
+    // 64 are zero because each product reads whole 64-deep tiles
+    const int d0 = args.dims[0];
+    const int d0p = (d0 + 63) & ~63;
+    for (int i = tid; i < BM * d0p; i += kConsumers) {
+      const int r = i / d0p, c = i - r * d0p;
+      const float v = (r < rows && c < d0) ? x[static_cast<size_t>(row0 + r) * d0 + c] : 0.f;
+      in[r * ld + c] = __float2bfloat16_rn(v);
     }
-    __nv_bfloat16* tmp = in;
-    in = nxt;
-    nxt = tmp;
+    for (int l = 0; l < args.n_layers; ++l) {
+      const int N = args.dims[l + 1];
+      const float* __restrict__ bias = args.b[l];
+      if (l == args.n_layers - 1) {
+        consume_step(in, ld, args.dims[l], N, ring, [&](int rr, int n, float acc) {
+          if (n < N && rr < rows)
+            out[static_cast<size_t>(row0 + rr) * N + n] =
+                __bfloat162float(__float2bfloat16_rn(acc + bias[n]));
+        });
+      } else {
+        // columns past N, up to ld - 8, are the zeros the next layer's last
+        // mma step reads
+        consume_step(in, ld, args.dims[l], N, ring, [&](int rr, int n, float acc) {
+          nxt[rr * ld + n] = __float2bfloat16_rn(n < N ? relu(acc + bias[n]) : 0.f);
+        });
+      }
+      __nv_bfloat16* t = in;
+      in = nxt;
+      nxt = t;
+    }
   }
+  cluster_sync();  // no CTA leaves while a peer may still arrive on its barriers
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -227,54 +198,68 @@ __global__ void __launch_bounds__(kThreads)
 
 // Dynamic shared memory the launch asks for (0 when the stack is too wide
 // or too deep for one block); the wrapper uses it to refuse shapes up front.
-extern "C" long long mlp_fwd_smem_bytes(const int* dims, int n_layers,
-                                        int mm_bf16) {
+// A bf16 stack too wide for 8 ring stages takes fewer, down to 2.
+extern "C" long long mlp_fwd_smem_bytes(const int* dims, int n_layers, int mm_bf16) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 0;
-  int dmax = 0;
-  for (int l = 0; l <= n_layers; ++l) dmax = dims[l] > dmax ? dims[l] : dmax;
-  long long bytes;
   if (mm_bf16) {
-    const int ld = ((dmax + 63) / 64) * 64 + 8;
-    bytes = 2LL * (2LL * kBKb * kWLd + 2LL * kBMbf16 * ld);
-  } else {
-    bytes = 4LL * (kBK * kBN + 2LL * kBMf32 * dmax);
+    const int ld = chain_ld(dims, n_layers);
+    const int stages = chain_stages(ld);
+    return stages ? chain_smem(stages, ld) : 0;
   }
+  const long long bytes = 4LL * (kBK * kBN + 2LL * kBMf32 * dims_max(dims, n_layers));
   return bytes > 227LL * 1024 ? 0 : bytes;
+}
+
+// How many clusters of the bf16 chain the card holds at once at these
+// widths (or minus a CUDA error); *cluster is set to their CTAs, C.
+extern "C" int mlp_fwd_max_active_clusters(const int* dims, int n_layers, int* cluster) {
+  *cluster = kCluster;
+  const long long smem = mlp_fwd_smem_bytes(dims, n_layers, 1);
+  if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_active_clusters(mlp_fwd_bf16_kernel, smem);
 }
 
 // x: (B, dims[0]) f32; ws[l]: (dims[l], dims[l+1]) f32; bs[l]: (dims[l+1],)
 // f32; out: (B, dims[n_layers]) f32.  ws and bs are host arrays of device
-// pointers.  Launches on `stream` and returns cudaGetLastError().
+// pointers.  bf16: `packed` holds the pre-pass's tiles (kTileElems bf16
+// each, Σ_l k_tiles(dims[l]) * n_tiles(dims[l+1]) of them), and `parts`
+// picks the launches: 1 the pre-pass, 2 the
+// chain (3 both; the parts apart are for timing).  The f32 path ignores
+// them.  Launches on `stream` and returns the first CUDA error.
 extern "C" int mlp_fwd_launch(const void* x, void* out, const void* const* ws,
-                              const void* const* bs, const int* dims,
-                              int n_layers, int B, int mm_bf16, void* stream) {
+                              const void* const* bs, void* packed, const int* dims,
+                              int n_layers, int B, int mm_bf16, int parts, void* stream) {
   const long long smem = mlp_fwd_smem_bytes(dims, n_layers, mm_bf16);
   if (smem == 0 || B < 1) return cudaErrorInvalidValue;
   MlpArgs args = {};
-  int dmax = 0;
   for (int l = 0; l < n_layers; ++l) {
     args.w[l] = static_cast<const float*>(ws[l]);
     args.b[l] = static_cast<const float*>(bs[l]);
   }
-  for (int l = 0; l <= n_layers; ++l) {
-    args.dims[l] = dims[l];
-    dmax = dims[l] > dmax ? dims[l] : dmax;
-  }
+  for (int l = 0; l <= n_layers; ++l) args.dims[l] = dims[l];
   args.n_layers = n_layers;
+  const int ld = chain_ld(dims, n_layers);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mm_bf16) {
-    const int ld = ((dmax + 63) / 64) * 64 + 8;
-    cudaFuncSetAttribute(mlp_fwd_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    mlp_fwd_bf16_kernel<<<(B + kBMbf16 - 1) / kBMbf16, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), args, B, ld);
-  } else {
-    cudaFuncSetAttribute(mlp_fwd_f32_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!mm_bf16) {
+    cudaFuncSetAttribute(mlp_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
     mlp_fwd_f32_kernel<<<(B + kBMf32 - 1) / kBMf32, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), args, B, dmax);
+        static_cast<const float*>(x), static_cast<float*>(out), args, B, dims_max(dims, n_layers));
+    return static_cast<int>(cudaGetLastError());
+  }
+  Chain chain = {};
+  for (int l = 0; l < n_layers; ++l) add_step(chain, args.w[l], dims[l], dims[l + 1], 0);
+  __nv_bfloat16* tiles = static_cast<__nv_bfloat16*>(packed);
+  if (parts & 1) {
+    pack_tiles_kernel<<<chain.tile0[chain.n_steps], kThreads, 0, s>>>(chain, tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2) {
+    const cudaError_t err = launch_chain(mlp_fwd_bf16_kernel, B, smem, s,
+                                         static_cast<const float*>(x), static_cast<float*>(out),
+                                         args, chain, tiles, B, ld, chain_stages(ld));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

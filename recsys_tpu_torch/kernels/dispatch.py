@@ -133,38 +133,10 @@ def _mlp_dims(name: str, x: torch.Tensor, ws, bs) -> list[int]:
     return dims
 
 
-def fused_mlp_forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                      bs: Sequence[torch.Tensor], mm_bf16: bool = True) -> torch.Tensor:
-    """x (B, D0) f32; ws [(D_{i-1}, D_i)] f32; bs [(D_i,) or (1, D_i)] f32
-    -> (B, D_k) f32.  Relu hidden layers, linear last layer; matmuls in
-    bf16 with f32 accumulation when ``mm_bf16``, else exact f32."""
-    dims = _mlp_dims("fused_mlp_forward", x, ws, bs)
-    tensors = [x, *ws, *bs]
-    if x.device.type == "cpu":
-        return mlp_ref.mlp_forward(x, ws, bs, mm_bf16)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_forward: no kernel for device {x.device}")
-    _check_cuda("fused_mlp_forward", tensors, x.device)
-    lib = build.libraries()["mlp_fwd"]
-    n = len(ws)
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    if lib.mlp_fwd_smem_bytes(ctypes.cast(c_dims, ctypes.c_void_p), n,
-                              int(mm_bf16)) == 0:
-        raise ValueError(f"fused_mlp_forward: kernel does not take widths {dims}")
-    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
-    if x.shape[0] == 0:
-        return out
-    c_ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w in ws])
-    c_bs = (ctypes.c_void_p * n)(*[b.data_ptr() for b in bs])
-    with torch.cuda.device(x.device):
-        rc = lib.mlp_fwd_launch(
-            x.data_ptr(), out.data_ptr(), ctypes.cast(c_ws, ctypes.c_void_p),
-            ctypes.cast(c_bs, ctypes.c_void_p), ctypes.cast(c_dims, ctypes.c_void_p),
-            n, x.shape[0], int(mm_bf16), _stream(x),
-        )
-    build.check(rc, "fused_mlp_forward")
-    LAUNCHES["mlp_fwd"] += 1
-    return out
+# The launches of a fused-MLP call, for launching them apart
+MLP_PACK, MLP_CHAIN, MLP_DW = 1, 2, 4
+# Kernel B's batch slices hold at least this many rows
+MLP_MIN_SLICE_ROWS = 256
 
 
 def _ptrs(ts):
@@ -175,6 +147,142 @@ def _ptrs(ts):
 
 def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
+
+
+_MLP_WRAPPER = {"mlp_fwd": "fused_mlp_forward", "mlp_bwd": "fused_mlp_backward"}
+
+
+def _mlp_lib(name: str, dims: list[int], mm_bf16: bool):
+    """The kernel library ``name`` and the C dims array; raises on widths
+    the kernels do not take."""
+    lib = build.libraries()[name]
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    smem = getattr(lib, f"{name}_smem_bytes")
+    if smem(ctypes.cast(c_dims, ctypes.c_void_p), len(dims) - 1, int(mm_bf16)) == 0:
+        raise ValueError(f"{_MLP_WRAPPER[name]}: kernel does not take widths {dims}")
+    return lib, c_dims
+
+
+def _packed(dims, backward, device) -> torch.Tensor:
+    """Scratch for the pre-pass's tiles (bf16, uninitialised)."""
+    n = mlp_ref.packed_tile_count(dims, backward)
+    return torch.empty((n, mlp_ref.TILE_K, mlp_ref.TILE_LD), dtype=torch.bfloat16, device=device)
+
+
+def mlp_forward_call(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                     mm_bf16: bool = True):
+    """One fused forward on CUDA tensors with B >= 1, checked and allocated
+    but not launched: returns ``(launch, bufs)``.  ``launch(parts)`` runs
+    the chosen kernels, ``MLP_PACK`` (the bf16 pre-pass that rounds and
+    packs the weights into ``bufs["packed"]``) and ``MLP_CHAIN`` (which
+    writes ``bufs["out"]``); the f32 path has no pre-pass.
+    ``fused_mlp_forward`` launches both; apart they time each part and hold
+    the pre-pass against ``kernels/mlp.py::pack_weight_tiles``.  It counts
+    no launch."""
+    dims = _mlp_dims("fused_mlp_forward", x, ws, bs)
+    _check_cuda("fused_mlp_forward", [x, *ws, *bs], x.device)
+    lib, c_dims = _mlp_lib("mlp_fwd", dims, mm_bf16)
+    bufs = {"out": torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device),
+            "packed": _packed(dims, False, x.device) if mm_bf16 else None}
+    packed = bufs["packed"].data_ptr() if mm_bf16 else None
+
+    def launch(parts: int) -> None:
+        (pw, _kw), (pb, _kb) = _ptrs(ws), _ptrs(bs)
+        with torch.cuda.device(x.device):
+            rc = lib.mlp_fwd_launch(
+                x.data_ptr(), bufs["out"].data_ptr(), pw, pb, packed,
+                ctypes.cast(c_dims, ctypes.c_void_p), len(ws), x.shape[0], int(mm_bf16), parts,
+                _stream(x))
+        build.check(rc, "fused_mlp_forward")
+
+    return launch, bufs
+
+
+def fused_mlp_forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                      bs: Sequence[torch.Tensor], mm_bf16: bool = True) -> torch.Tensor:
+    """x (B, D0) f32; ws [(D_{i-1}, D_i)] f32; bs [(D_i,) or (1, D_i)] f32
+    -> (B, D_k) f32.  Relu hidden layers, linear last layer; matmuls in
+    bf16 with f32 accumulation when ``mm_bf16``, else exact f32."""
+    dims = _mlp_dims("fused_mlp_forward", x, ws, bs)
+    if x.device.type == "cpu":
+        return mlp_ref.mlp_forward(x, ws, bs, mm_bf16)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_forward: no kernel for device {x.device}")
+    if x.shape[0] == 0:
+        _check_cuda("fused_mlp_forward", [x, *ws, *bs], x.device)
+        _mlp_lib("mlp_fwd", dims, mm_bf16)
+        return torch.empty((0, dims[-1]), dtype=torch.float32, device=x.device)
+    launch, bufs = mlp_forward_call(x, ws, bs, mm_bf16)
+    launch(MLP_PACK | MLP_CHAIN)
+    LAUNCHES["mlp_fwd"] += 1
+    return bufs["out"]
+
+
+def mlp_bwd_split(dims: Sequence[int], b: int, sms: int) -> tuple[int, int]:
+    """(slices, rows a slice) of kernel B's batch sum: where the bf16 dW
+    tiles (``kernels/mlp.py::DW_TILE`` square) of a tower leave more than
+    half the card's ``sms`` idle, the batch is cut into sms // tiles slices
+    of at least ``MLP_MIN_SLICE_ROWS`` rows, each a multiple of 32, none
+    empty.  The launch takes the rows; the slices follow from them."""
+    ceil = lambda a, c: -(-a // c)  # noqa: E731
+    t = mlp_ref.DW_TILE
+    tiles = sum(ceil(a, t) * ceil(c, t) for a, c in zip(dims, dims[1:]))
+    split = max(1, min(sms // tiles, b // MLP_MIN_SLICE_ROWS))
+    rows = ceil(ceil(b, split), 32) * 32
+    return ceil(b, rows), rows
+
+
+def mlp_backward_call(x: torch.Tensor, g: torch.Tensor, ws: Sequence[torch.Tensor],
+                      bs: Sequence[torch.Tensor], mm_bf16: bool = True):
+    """One fused backward on CUDA tensors with B >= 1, checked and
+    allocated but not launched: returns ``(launch, bufs)``.
+    ``launch(parts)`` runs the chosen kernels: ``MLP_PACK`` (the bf16
+    pre-pass, into ``bufs["packed"]``), ``MLP_CHAIN`` (kernel A: ``dx`` and
+    the h, dz scratch) and ``MLP_DW`` (kernel B and, with ``bufs["split"]``
+    > 1 slices, the pass that sums them: ``dws``, ``dbs``).
+    ``fused_mlp_backward`` launches all three; apart they time each part.
+    It counts no launch."""
+    dims = _mlp_dims("fused_mlp_backward", x, ws, bs)
+    if g.shape != (x.shape[0], dims[-1]) or g.dtype != torch.float32:
+        raise ValueError(f"fused_mlp_backward: g must be f32 {(x.shape[0], dims[-1])}, "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    _check_cuda("fused_mlp_backward", [x, g, *ws, *bs], x.device)
+    lib, c_dims = _mlp_lib("mlp_bwd", dims, mm_bf16)
+    n, b, dev = len(ws), x.shape[0], x.device
+    bufs = {"dx": torch.empty_like(x), "dws": [torch.empty_like(w) for w in ws],
+            "dbs": [torch.empty_like(v) for v in bs], "packed": None, "split": 1,
+            "split_rows": -(-b // 32) * 32}
+    if mm_bf16:
+        bufs["packed"] = _packed(dims, True, dev)
+        bufs["split"], bufs["split_rows"] = mlp_bwd_split(
+            dims, b, torch.cuda.get_device_properties(dev).multi_processor_count)
+        # the f32 chain multiplies by W_iᵀ from a transposed copy; the bf16
+        # pre-pass packs W_iᵀ from W_i itself
+        wts = list(ws)
+    else:
+        wts = [w.t().contiguous() for w in ws]
+    if bufs["split"] > 1:  # kernel B's partial sums, a slice at a time
+        per_slice = sum(a * c + c for a, c in zip(dims, dims[1:]))
+        bufs["partial"] = torch.empty(bufs["split"] * per_slice, dtype=torch.float32,
+                                      device=dev)
+    # scratch: each layer's rounded input h_i and masked cotangent dz_i in
+    # the matmul type, rows padded to 8 columns for 16-byte loads
+    mm = torch.bfloat16 if mm_bf16 else torch.float32
+    bufs["h"] = torch.empty(b * sum(_round8(d) for d in dims[:-1]), dtype=mm, device=dev)
+    bufs["dz"] = torch.empty(b * sum(_round8(d) for d in dims[1:]), dtype=mm, device=dev)
+    ptr = lambda k: bufs[k].data_ptr() if bufs.get(k) is not None else None  # noqa: E731
+
+    def launch(parts: int) -> None:
+        (pw, _kw), (pt, _kt), (pb, _kb) = _ptrs(ws), _ptrs(wts), _ptrs(bs)
+        (pdw, _kdw), (pdb, _kdb) = _ptrs(bufs["dws"]), _ptrs(bufs["dbs"])
+        with torch.cuda.device(dev):
+            rc = lib.mlp_bwd_launch(
+                x.data_ptr(), g.data_ptr(), ptr("dx"), pw, pt, pb, pdw, pdb, ptr("h"),
+                ptr("dz"), ptr("packed"), ptr("partial"), ctypes.cast(c_dims, ctypes.c_void_p),
+                n, b, int(mm_bf16), bufs["split_rows"], parts, _stream(x))
+        build.check(rc, "fused_mlp_backward")
+
+    return launch, bufs
 
 
 def fused_mlp_backward(x: torch.Tensor, g: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -191,35 +299,29 @@ def fused_mlp_backward(x: torch.Tensor, g: torch.Tensor, ws: Sequence[torch.Tens
         return mlp_ref.mlp_backward(x, g, ws, bs, mm_bf16)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_backward: no kernel for device {x.device}")
-    _check_cuda("fused_mlp_backward", [x, g, *ws, *bs], x.device)
-    lib = build.libraries()["mlp_bwd"]
-    n, b = len(ws), x.shape[0]
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    if lib.mlp_bwd_smem_bytes(ctypes.cast(c_dims, ctypes.c_void_p), n, int(mm_bf16)) == 0:
-        raise ValueError(f"fused_mlp_backward: kernel does not take widths {dims}")
-    dx = torch.empty_like(x)
-    dws = [torch.empty_like(w) for w in ws]
-    dbs = [torch.empty_like(v) for v in bs]
-    if b == 0:
-        return dx, [t.zero_() for t in dws], [t.zero_() for t in dbs]
-    # the backward chain multiplies by W_iᵀ, staged like the forward's W_i
-    wts = [w.t().contiguous() for w in ws]
-    # scratch: each layer's rounded input h_i and masked cotangent dz_i in
-    # the matmul type, rows padded to 8 columns for 16-byte loads
-    mm = torch.bfloat16 if mm_bf16 else torch.float32
-    h = torch.empty(b * sum(_round8(d) for d in dims[:-1]), dtype=mm, device=x.device)
-    dz = torch.empty(b * sum(_round8(d) for d in dims[1:]), dtype=mm, device=x.device)
-    (pw, _kw), (pt, _kt), (pb, _kb) = _ptrs(ws), _ptrs(wts), _ptrs(bs)
-    (pdw, _kdw), (pdb, _kdb) = _ptrs(dws), _ptrs(dbs)
-    with torch.cuda.device(x.device):
-        rc = lib.mlp_bwd_launch(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), pw, pt, pb, pdw, pdb,
-            h.data_ptr(), dz.data_ptr(), ctypes.cast(c_dims, ctypes.c_void_p),
-            n, b, int(mm_bf16), _stream(x),
-        )
-    build.check(rc, "fused_mlp_backward")
+    if x.shape[0] == 0:
+        _check_cuda("fused_mlp_backward", [x, g, *ws, *bs], x.device)
+        _mlp_lib("mlp_bwd", dims, mm_bf16)
+        return (torch.empty_like(x), [torch.zeros_like(w) for w in ws],
+                [torch.zeros_like(v) for v in bs])
+    launch, bufs = mlp_backward_call(x, g, ws, bs, mm_bf16)
+    launch(MLP_PACK | MLP_CHAIN | MLP_DW)
     LAUNCHES["mlp_bwd"] += 1
-    return dx, dws, dbs
+    return bufs["dx"], bufs["dws"], bufs["dbs"]
+
+
+def mlp_chain_clusters(dims: Sequence[int], backward: bool = False) -> tuple[int, int]:
+    """(C, clusters): the CTAs of a cluster of the bf16 chain (the forward,
+    or the backward's kernel A), and how many such clusters the card holds
+    at once at these widths (``cudaOccupancyMaxActiveClusters``)."""
+    name = "mlp_bwd" if backward else "mlp_fwd"
+    lib, c_dims = _mlp_lib(name, list(dims), True)
+    c = ctypes.c_int(0)
+    n = getattr(lib, f"{name}_max_active_clusters")(
+        ctypes.cast(c_dims, ctypes.c_void_p), len(dims) - 1, ctypes.byref(c))
+    if n < 0:
+        raise RuntimeError(f"{name}_max_active_clusters: CUDA error {-n}")
+    return c.value, n
 
 
 def _check_embedding(name, p, state, cot_sorted, ids2d, cptr, block):

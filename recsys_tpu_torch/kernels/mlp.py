@@ -1,6 +1,7 @@
 """Plain PyTorch fused-MLP forward and backward: the ground truth for the
 CUDA kernels ``csrc/mlp_fwd.cu`` and ``csrc/mlp_bwd.cu`` and the path a CPU
-tensor takes.
+tensor takes; and :func:`pack_weight_tiles`, the plain version of the
+kernels' pre-pass, with the layout it writes (:func:`chain_steps`).
 
 It repeats the rounding of the TPU kernel's body (recsys_tpu's
 ``kernels/pallas/mlp_tpu.py::_fwd_kernel``): the input is cast to the
@@ -13,6 +14,15 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
+
+# The bf16 chains' packed weight tiles (csrc/mlp_tiles.cuh): TILE_K x
+# TILE_N values, k-major, each row padded to TILE_LD with zeros; a chain
+# step holds CHUNK column tiles' accumulators at a time.
+TILE_K, TILE_N, TILE_LD, CHUNK = 64, 128, 136, 4
+# The backward's dW pass (csrc/mlp_bwd.cu, kernel B) owns DW_TILE x DW_TILE
+# tiles of a dW_i.
+DW_TILE = 128
 
 
 def mlp_forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -58,3 +68,41 @@ def mlp_backward(x: torch.Tensor, g: torch.Tensor, ws: Sequence[torch.Tensor],
         dh = torch.mm(dh.float(), ws[i].to(mm).float().t()).to(mm)
     return dh.float(), dws, dbs
 
+
+def chain_steps(dims: Sequence[int], backward: bool = False):
+    """The products a bf16 chain kernel runs, in order, as (layer, K, N,
+    transposed): the forward's W_0 .. W_{n-1}; the backward's recompute
+    W_0 .. W_{n-2}, then W_{n-1}ᵀ .. W_0ᵀ."""
+    n = len(dims) - 1
+    fwd = [(i, dims[i], dims[i + 1], False) for i in range(n if not backward else n - 1)]
+    if not backward:
+        return fwd
+    return fwd + [(i, dims[i + 1], dims[i], True) for i in range(n - 1, -1, -1)]
+
+
+def tile_grid(k: int, n: int) -> tuple[int, int]:
+    """(k tiles, n tiles) of a (k, n) weight."""
+    return -(-k // TILE_K), -(-n // TILE_N)
+
+
+def packed_tile_count(dims: Sequence[int], backward: bool = False) -> int:
+    return sum(a * b for a, b in (tile_grid(k, n) for _, k, n, _ in chain_steps(dims, backward)))
+
+
+def pack_weight_tiles(ws: Sequence[torch.Tensor], backward: bool = False) -> torch.Tensor:
+    """(tiles, TILE_K, TILE_LD) bf16: the weights of :func:`chain_steps`,
+    each rounded to bf16 (W_i, or W_iᵀ for a transposed step) and cut into
+    TILE_K x TILE_N tiles, rows past K and columns past N zero; in a step,
+    chunk by chunk of CHUNK column tiles, and in a chunk k tile by k tile,
+    each with its column tiles in order.  What the CUDA pre-pass writes."""
+    dims = [ws[0].shape[0], *(w.shape[1] for w in ws)]
+    tiles = []
+    for i, k, n, transposed in chain_steps(dims, backward):
+        w = (ws[i].t() if transposed else ws[i]).to(torch.bfloat16)
+        kt, nt = tile_grid(k, n)
+        w = F.pad(w, (0, nt * TILE_N - n, 0, kt * TILE_K - k))
+        w = w.reshape(kt, TILE_K, nt, TILE_N).permute(0, 2, 1, 3)  # (k tile, n tile, ...)
+        for c0 in range(0, nt, CHUNK):
+            chunk = w[:, c0:c0 + CHUNK].reshape(-1, TILE_K, TILE_N)
+            tiles.append(F.pad(chunk, (0, TILE_LD - TILE_N)))
+    return torch.cat(tiles)

@@ -25,6 +25,7 @@ from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.kernels import attention as attn
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
+from recsys_tpu_torch.kernels import mlp as mlp_ref
 from recsys_tpu_torch.kernels.interactions import dot_interaction
 from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
@@ -175,6 +176,122 @@ def test_mlp_bwd_kernel_bit_equal_on_integer_values(cuda, mm_bf16, dims, b):
     want = mlp_backward(x, g, ws, bs, mm_bf16)
     for u, v in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
         assert torch.equal(u, v)
+
+
+def _exact_mlp_case(cuda, b, dims, seed=9):
+    to = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    x, g, ws, bs = mlp_bwd_check.exact_case(np.random.default_rng(seed), b, dims)
+    x, g, ws, bs = to(x), to(g), [to(w) for w in ws], [to(v) for v in bs]
+    assert mlp_bwd_check.largest_term_sum(x, g, ws, bs) < mlp_bwd_check.EXACT_LIMIT
+    return x, g, ws, bs
+
+
+def _bwd_equal(got, want) -> bool:
+    return all(torch.equal(u, v) for u, v in
+               zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]))
+
+
+# K and N off the 64 x 128 weight tiles, N = 1, K = 13, two column chunks
+# (1300); the batches leave a partial last cluster and a ragged last CTA
+RAGGED_DIMS = [[13, 100, 1], [200, 130, 70, 1], [5, 7, 3], [9, 4], [13, 512, 256, 16, 16],
+               [200, 1300, 70, 1]]
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("dims", RAGGED_DIMS)
+@pytest.mark.parametrize("b", [31, 33, 4095, 4097])
+def test_mlp_fwd_kernel_bit_equal_on_ragged_shapes(cuda, mm_bf16, dims, b):
+    x, _, ws, bs = _exact_mlp_case(cuda, b, dims)
+    got = dispatch.fused_mlp_forward(x, ws, bs, mm_bf16)
+    assert torch.equal(got, mlp_forward(x, ws, bs, mm_bf16))
+
+
+@pytest.mark.parametrize("dims", [*RAGGED_DIMS, [367, 1024, 1024, 512, 256, 1]])
+@pytest.mark.parametrize("b", [31, 33, 4095, 4097])
+def test_mlp_bwd_kernel_bit_equal_on_ragged_shapes(cuda, dims, b):
+    x, g, ws, bs = _exact_mlp_case(cuda, b, dims)
+    got = dispatch.fused_mlp_backward(x, g, ws, bs)
+    assert _bwd_equal(got, mlp_backward(x, g, ws, bs))
+    # the check sees a dW that leaves out the first of kernel B's batch
+    # slices, or one 32-row step
+    split, rows = dispatch.mlp_bwd_split(
+        dims, b, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert split * rows >= b > (split - 1) * rows
+    want = mlp_backward(x, g, ws, bs)[1]
+    for n_rows in (rows, 32):
+        part = mlp_backward(x[:n_rows], g[:n_rows], ws, bs)[1]
+        assert any(not torch.equal(u - p, v) for u, p, v in zip(got[1], part, want))
+
+
+@pytest.mark.parametrize("dims", [[13, 512, 256, 16, 16], [367, 1024, 1024, 512, 256, 1]])
+def test_mlp_bwd_kernel_gives_the_same_bits_twice(cuda, dims):
+    tw, tb = _mlp_params(dims, 12, cuda)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.random((4096, dims[0]), np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((4096, dims[-1]), np.float32)).to(cuda)
+    first = dispatch.fused_mlp_backward(x, g, tw, tb)
+    assert _bwd_equal(first, dispatch.fused_mlp_backward(x, g, tw, tb))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dims", [[13, 512, 256, 16, 16], [367, 1024, 1024, 512, 256, 1],
+                                  [13, 100, 1], [200, 1300, 70, 1]])
+def test_mlp_pack_kernel_matches_plain(cuda, backward, dims):
+    # the pre-pass alone, over a buffer of ones: every value of every tile,
+    # padding included, is what kernels/mlp.py::pack_weight_tiles writes
+    tw, tb = _mlp_params(dims, 11, cuda)
+    x = torch.zeros((5, dims[0]), device=cuda)
+    if backward:
+        launch, bufs = dispatch.mlp_backward_call(x, torch.zeros((5, dims[-1]), device=cuda),
+                                                  tw, tb)
+    else:
+        launch, bufs = dispatch.mlp_forward_call(x, tw, tb)
+    bufs["packed"].fill_(1.0)
+    launch(dispatch.MLP_PACK)
+    want = mlp_ref.pack_weight_tiles([w.cpu() for w in tw], backward)
+    assert torch.equal(bufs["packed"].cpu(), want)
+
+
+@pytest.mark.parametrize("dims", [[367, 1024, 1024, 512, 256, 1], [13, 100, 1]])
+def test_mlp_kernels_bit_equal_at_every_cluster_size(cuda, dims):
+    # the chains' one cluster size C is compiled in: the card holds
+    # clusters of it at these widths, and the launches run apart (as the
+    # timing does) give the wrapper's bits
+    for backward in (False, True):
+        c, active = dispatch.mlp_chain_clusters(dims, backward)
+        assert c >= 2 and active >= 1
+    x, g, ws, bs = _exact_mlp_case(cuda, 1000, dims)
+    launch, bufs = dispatch.mlp_forward_call(x, ws, bs)
+    launch(dispatch.MLP_PACK)
+    launch(dispatch.MLP_CHAIN)
+    assert torch.equal(bufs["out"], mlp_forward(x, ws, bs))
+    launch, bufs = dispatch.mlp_backward_call(x, g, ws, bs)
+    for part in (dispatch.MLP_PACK, dispatch.MLP_CHAIN, dispatch.MLP_DW):
+        launch(part)
+    assert _bwd_equal((bufs["dx"], bufs["dws"], bufs["dbs"]), mlp_backward(x, g, ws, bs))
+
+
+@pytest.mark.parametrize("width", [1216, 1344, 1472, 1536])
+def test_mlp_kernels_take_the_widest_stacks(cuda, width):
+    # the first design took bf16 stacks up to 1536 wide; the ring falls
+    # back from 8 stages to 4 (1216), 3 (1344) and 2 (1472, 1536)
+    x, g, ws, bs = _exact_mlp_case(cuda, 100, [8, width, 8])
+    assert torch.equal(dispatch.fused_mlp_forward(x, ws, bs), mlp_forward(x, ws, bs))
+    assert _bwd_equal(dispatch.fused_mlp_backward(x, g, ws, bs), mlp_backward(x, g, ws, bs))
+
+
+@pytest.mark.parametrize("dims", [[367, 1536, 1536, 512, 256, 1], [367, 1344, 1344, 1300, 1],
+                                  [200, 1152, 367, 1]])
+def test_mlp_kernels_bit_equal_where_chunks_do_not_divide_the_ring(cuda, dims):
+    # deep stacks at 2, 3 and 4 ring stages with chunks of 3 column tiles
+    # (367 and 1300 wide): consecutive uses of a slot belong to different
+    # warps, whose copies may land out of order; a full 4096-row call, a
+    # few times over
+    x, g, ws, bs = _exact_mlp_case(cuda, 4096, dims)
+    want_f, want_b = mlp_forward(x, ws, bs), mlp_backward(x, g, ws, bs)
+    for _ in range(3):
+        assert torch.equal(dispatch.fused_mlp_forward(x, ws, bs), want_f)
+        assert _bwd_equal(dispatch.fused_mlp_backward(x, g, ws, bs), want_b)
 
 
 def _embedding_case(cuda, v, d, n, block, *, hot=False, seed=0, cot_scale=1e-2):

@@ -20,6 +20,7 @@ from recsys_tpu.kernels.pallas.mlp_tpu import mlp_fwd_pallas
 from recsys_tpu_torch.kernels import default_device
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels.interactions import dot_interaction
+from recsys_tpu_torch.kernels import mlp as mlp_ref
 from recsys_tpu_torch.kernels.mlp import mlp_forward
 
 REPO = Path(__file__).resolve().parents[1]
@@ -74,6 +75,52 @@ def test_mlp_forward_matches_pallas_interpret(mm_bf16):
         np.testing.assert_array_equal(got, _bf16_np(got))
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dims", [[13, 512, 256, 16, 16], [367, 1024, 1024, 512, 256, 1],
+                                  [5, 7, 3], [13, 100, 1], [200, 1300, 70, 1]])
+def test_pack_weight_tiles_unpacks_to_the_rounded_weights(backward, dims):
+    # the layout the CUDA pre-pass writes (csrc/mlp_tiles.cuh): cut back
+    # into its steps, each (K, N) block is the bf16 W_i (or W_iᵀ), zero past
+    # it, and every row's 8 padding columns are zero
+    ws = [torch.from_numpy(w) for w in _mlp_params(dims, seed=4)[0]]
+    tk, tn, chunk = mlp_ref.TILE_K, mlp_ref.TILE_N, mlp_ref.CHUNK
+    packed = mlp_ref.pack_weight_tiles(ws, backward)
+    assert packed.dtype == torch.bfloat16
+    assert packed.shape == (mlp_ref.packed_tile_count(dims, backward), tk, mlp_ref.TILE_LD)
+    assert not packed[:, :, tn:].any()
+    steps = mlp_ref.chain_steps(dims, backward)
+    assert [s[0] for s in steps] == (
+        [*range(len(ws) - 1), *range(len(ws) - 1, -1, -1)] if backward else [*range(len(ws))])
+    t = 0
+    for i, k, n, transposed in steps:
+        kt, nt = mlp_ref.tile_grid(k, n)
+        assert kt * tk >= k > (kt - 1) * tk and nt * tn >= n > (nt - 1) * tn
+        full = torch.zeros((kt * tk, nt * tn), dtype=torch.bfloat16)
+        for c0 in range(0, nt, chunk):  # chunks of column tiles, k tiles outer
+            for kk in range(kt):
+                for j in range(c0, min(nt, c0 + chunk)):
+                    full[kk * tk:(kk + 1) * tk, j * tn:(j + 1) * tn] = packed[t, :, :tn]
+                    t += 1
+        want = (ws[i].t() if transposed else ws[i]).to(torch.bfloat16)
+        assert torch.equal(full[:k, :n], want)
+        assert not full[k:].any() and not full[:, n:].any()
+    assert t == packed.shape[0]
+
+
+@pytest.mark.parametrize("dims, b, slices", [
+    ([13, 512, 256, 16, 16], 4096, 8), ([13, 512, 256, 16, 16], 1000, 3),
+    ([13, 512, 256, 16, 16], 1, 1), ([367, 1024, 1024, 512, 256, 1], 4096, 1),
+    ([5, 7, 3], 4095, 15), ([5, 7, 3], 4097, 15), ([9, 4], 33, 1)])
+def test_mlp_bwd_split_cuts_the_batch_into_whole_slices(dims, b, slices):
+    # kernel B's batch slices: 32-row steps, none empty, the batch covered;
+    # a tower whose dW tiles leave more than half the card's 132 SMs idle
+    # is cut (the bottom tower's 15 into 8 slices, the top's 130 not)
+    split, rows = dispatch.mlp_bwd_split(dims, b, 132)
+    assert split == slices
+    assert rows % 32 == 0 and split * rows >= b and (split - 1) * rows < b
+    assert split == 1 or rows >= dispatch.MLP_MIN_SLICE_ROWS
 
 
 # -- routing and input checks -----------------------------------------------
