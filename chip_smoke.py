@@ -15,7 +15,9 @@ checkout.  Phases, one JSON line each:
                 within limits on random weights; the embedding updates on one
                 100k x 16 table with a 16384-id batch, uniform and skewed,
                 with a ragged last block, f32 and bf16 tables, bf16 and f32
-                sums and weight decay off and on.
+                sums and weight decay off and on; rowwise AdaGrad also at
+                D = 128 (blocks of 256) and 12, on a table 4 bytes into
+                its storage and on 16384 occurrences of one row.
 4. serve     -- DLRM at the bench widths (26 x 100k-row tables, D = 16,
                 bottom 13-512-256-16-16, top 367-1024-1024-512-256-1, bf16
                 compute, 4 dense microbatches), weights made from the seed in
@@ -117,9 +119,11 @@ checkout.  Phases, one JSON line each:
                 counts from two states, and passes of the 26 bench tables,
                 of unequal tables, with an empty table and of 40 tables,
                 each one launch for every 32 tables; walks of 1 to 100,000
-                rows and 1 to 1024 columns; the hot gather at pack 1, 2 and 8 with sentinel and negative
-                ids, past 48 KB of shared memory, and its refusal of a 256 KB
-                buffer; each limit shown to reject wrong results.
+                rows and 1 to 1024 columns; the hot gather at pack 1, 2 and
+                8 with sentinel and negative ids, 13 to 300,001 unpadded
+                ids, ids mostly outside, an unaligned buffer, a buffer past
+                48 KB and one at the opt-in limit, and its refusal of a
+                256 KB buffer; each limit shown to reject wrong results.
 23. probes   -- stream_probe, gather_split_probe (Zipf(1.1), then uniform)
                 and dedup_probe at the bench shapes, each printing its JSON
                 line; launch counts zeroed before and read after; the split
@@ -127,7 +131,8 @@ checkout.  Phases, one JSON line each:
 24. probe timing -- kernel, plain, library and bound ms of the three probe
                 kernels at the probes' shapes: the Adam pass over the 26
                 tables (one launch) in turns with torch's fused Adam, the
-                walk beside its add-chain floor.
+                walk beside its add-chain floor, the hot gather beside its
+                launch floor (an empty kernel at its grid, launch_floor_ms).
 25. kernels  -- one line naming every kernel with its launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
@@ -501,26 +506,29 @@ def check_mlp_bwd(rng, dev) -> float:
     return worst
 
 
-def embedding_inputs(rng, dev, vocab, skewed, block):
+def embedding_inputs(rng, dev, vocab, skewed, block, d=EMBED_DIM, one_id=False):
     """One table's update inputs for a 16384-id batch: the cotangent rows
     sorted by host prep, their ids and chunk pointers, and a random table
-    and optimizer state (as if after a few steps)."""
+    and optimizer state (as if after a few steps).  ``one_id``: every id
+    the same row."""
     import torch
 
     from recsys_tpu_torch.train.streaming_embed import host_prep_group
 
-    if skewed:  # Zipf-like: a few hot ids take most occurrences
+    if one_id:
+        ids = np.full(BATCH, vocab // 3, np.int32)
+    elif skewed:  # Zipf-like: a few hot ids take most occurrences
         ids = np.minimum(rng.zipf(1.2, BATCH) - 1, vocab - 1).astype(np.int32)
     else:
         ids = rng.integers(0, vocab, BATCH).astype(np.int32)
     ids2d, idx, cptr = host_prep_group(ids, vp=vocab, block=block, ch=UPDATE_CH)
-    cot = (rng.standard_normal((BATCH, EMBED_DIM)) * 1e-2).astype(np.float32)
+    cot = (rng.standard_normal((BATCH, d)) * 1e-2).astype(np.float32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return {
         "cot": to(cot[idx]), "ids2d": to(ids2d), "cptr": to(cptr),
-        "p": to(rng.uniform(-0.05, 0.05, (vocab, EMBED_DIM)).astype(np.float32)),
-        "m": to((rng.standard_normal((vocab, EMBED_DIM)) * 1e-3).astype(np.float32)),
-        "v": to(rng.uniform(1e-8, 1e-4, (vocab, EMBED_DIM)).astype(np.float32)),
+        "p": to(rng.uniform(-0.05, 0.05, (vocab, d)).astype(np.float32)),
+        "m": to((rng.standard_normal((vocab, d)) * 1e-3).astype(np.float32)),
+        "v": to(rng.uniform(1e-8, 1e-4, (vocab, d)).astype(np.float32)),
         "acc": to(rng.uniform(0, 1e-4, vocab).astype(np.float32)),
     }
 
@@ -572,6 +580,24 @@ def check_embedding_update(rng, dev) -> dict:
         if main:
             worst["embedding_rowwise_adagrad"] = max(worst["embedding_rowwise_adagrad"],
                                                      err["max_abs_err"])
+    # rowwise AdaGrad's other layouts: 32 lanes a row at D = 128 (blocks of
+    # 256 rows, a 128 KB tile past 48 KB), a warp a row at D = 12 and on a
+    # table 4 bytes into its storage, and 16384 occurrences of one row
+    for d, block, offset, one_id in ((128, 256, 0, False), (12, UPDATE_BLOCK, 0, False),
+                                     (EMBED_DIM, UPDATE_BLOCK, 1, False),
+                                     (EMBED_DIM, UPDATE_BLOCK, 0, True)):
+        a = embedding_inputs(rng, dev, VOCAB, False, block, d=d, one_id=one_id)
+        storage = torch.empty(VOCAB * d + offset, device=dev)
+        p = storage[offset:].view(VOCAB, d)
+        p.copy_(a["p"])
+        name = f"D={d} block={block} offset={offset} one_id={one_id}"
+        got, want = [p, a["acc"].clone()], [p.clone(), a["acc"].clone()]
+        dispatch.fused_embedding_rowwise_adagrad(*got, a["cot"], a["ids2d"], a["cptr"],
+                                                 block=block, lr=LR)
+        emb_ref.fused_rowwise_adagrad(*want, a["cot"], a["ids2d"], a["cptr"], block=block,
+                                      lr=LR)
+        check_close(f"embedding_rowwise_adagrad {name} p", got[0], want[0], ADAGRAD_P_TOL)
+        check_close(f"embedding_rowwise_adagrad {name} acc", got[1], want[1], ACC_TOL)
     return worst
 
 
@@ -2348,9 +2374,10 @@ def phase_probe_timing(rng, dev) -> dict:
     launch (library: torch's fused Adam, which adds bias correction: the
     same traffic, other values; timed in turns with the kernel), the per-row
     walk over (8192, 128) beside its add-chain floor and the add latency
-    read on the card (library: ``x.sum(0)``, in another order), the hot gather of one Zipf(1.1) table's hot ids at
-    H = 1024, d = 16, pack 1 (library: ``index_select`` of the real ids from
-    the hot buffer)."""
+    read on the card (library: ``x.sum(0)``, in another order), the hot
+    gather of one Zipf(1.1) table's hot ids at H = 1024, d = 16, pack 1
+    (library: ``index_select`` of the real ids from the hot buffer) beside
+    its launch floor, an empty kernel at its grid."""
     import torch
 
     from recsys_tpu_torch.kernels import build, dispatch
@@ -2426,10 +2453,18 @@ def phase_probe_timing(rng, dev) -> dict:
     n = hot_ids.numel()
     # the hot buffer and the ids read once, the (n, d) rows written once
     b_ms, b_by = bound(4 * (hot.numel() + n + n * EMBED_DIM), 0.0, F32_FLOPS)
+    # the launch floor: an empty kernel at the gather's own grid, timed alike
+    lib = build.libraries()["hot_gather"]
+    grid = lib.hot_gather_grid(n, EMBED_DIM, 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor = cuda_ms(lambda: lib.hot_gather_floor(grid, stream), 200, 10)
+    emit({"phase": "timing", "launch_floor_ms": floor, "grid": grid,
+          "what": "an empty kernel at the hot gather's grid through cuda_ms"})
     t = {"ms": cuda_ms(lambda: dispatch.hot_gather(hot, hot_ids, 1), 200, 10),
          "plain_ms": cuda_ms(lambda: probe_ref.hot_gather(hot, hot_ids, 1), 200, 10),
          "library_ms": cuda_ms(lambda: hot.index_select(0, real), 200, 10),
          "library": "index_select of the real ids", "bound_ms": b_ms, "bound_by": b_by,
+         "launch_floor_ms": floor, "grid": grid,
          "shape": {"hot": list(hot.shape), "ids": list(hot_ids.shape), "n_hot": n_hot}}
     emit({"phase": "timing", "kernel": "hot_gather", **t})
     res["hot_gather"] = t
@@ -2526,7 +2561,7 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **({"unfused_ms": t["unfused_ms"]} if "unfused_ms" in t else {}),
+            **{k: t[k] for k in ("unfused_ms", "launch_floor_ms") if k in t},
         })
     print(card["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

@@ -53,12 +53,23 @@ PERROW_CASES = {"probe 8192x128": (8192, 128, 0), "ragged 1000x128": (1000, 128,
                 "one row 1x128": (1, 128, 0), "one column 8192x1": (8192, 1, 0),
                 "widest 2048x1024": (2048, 1024, 0),
                 "past the L2 100000x128": (100_000, 128, 0)}
-# name -> (H, pack, d, ids): the probe's pack 1 (64 KB, past 48 KB), the JAX
-# test's pack 8, a width with 4-byte copies, a 128 KB buffer
-HOT_CASES = {"pack 1 H=1024 d=16": (1024, 1, 16, 13_312),
-             "pack 8 H=128 d=16": (128, 8, 16, 2048),
-             "pack 1 H=64 d=5": (64, 1, 5, 1000),
-             "pack 2 H=1024 d=16": (1024, 2, 16, 4096)}
+# name -> (H, pack, d, ids, kind): the probe's pack 1 (64 KB, past 48 KB),
+# the JAX test's pack 8, a width with 4-byte copies, a 128 KB buffer; then
+# unpadded ids ("flat": counts that are not whole 8-row warps, and grids of
+# 1,563 and 4,688 blocks), ids mostly outside the buffer, a buffer 4 bytes
+# into its storage (4-byte copies) and a buffer of exactly the H100's
+# opt-in shared memory (232,448 bytes)
+HOT_CASES = {"pack 1 H=1024 d=16": (1024, 1, 16, 13_312, "probe"),
+             "pack 8 H=128 d=16": (128, 8, 16, 2048, "probe"),
+             "pack 1 H=64 d=5": (64, 1, 5, 1000, "probe"),
+             "pack 2 H=1024 d=16": (1024, 2, 16, 4096, "probe"),
+             "13 ids": (1024, 1, 16, 13, "flat"),
+             "1001 ids": (1024, 1, 16, 1001, "flat"),
+             "100003 ids": (1024, 1, 16, 100_003, "flat"),
+             "300001 ids": (1024, 1, 16, 300_001, "flat"),
+             "mostly outside": (1024, 1, 16, 4099, "outside"),
+             "unaligned buffer": (1024, 1, 16, 13_312, "unaligned"),
+             "buffer at the opt-in limit H=3632": (3632, 1, 16, 13_312, "probe")}
 HOT_TOO_BIG = (4096, 1, 16)  # 256 KB: beyond the H100's 227 KB
 
 
@@ -143,26 +154,36 @@ def check_perrow(colsum, rng, n: int, w: int, offset: int, device) -> dict:
                    {"sum without the last row": {"out": wrong}})
 
 
-def hot_inputs(rng, h: int, pack: int, d: int, n: int, device):
-    """hot (H, pack·d) f32 and (ceil(n / 256), 256) int64 ids: hot slot ids
-    with, in every 16th place, a sentinel H·pack, a negative id or an id far
-    past the buffer (one beyond int32), and sentinel padding after the
-    n-th."""
-    hot = torch.from_numpy(rng.uniform(-1, 1, (h, pack * d)).astype(np.float32)).to(device)
+def hot_inputs(rng, h: int, pack: int, d: int, n: int, kind: str, device):
+    """hot (H, pack·d) f32 and int64 ids.  "probe": (ceil(n / 256), 256)
+    hot slot ids with, in every 16th place, a sentinel H·pack, a negative
+    id or an id far past the buffer (one beyond int32), and sentinel
+    padding after the n-th; "flat": the same n ids unpadded; "outside": n
+    ids of which 7 in 8 lie outside; "unaligned": the probe's ids, and a
+    buffer that starts 4 bytes into its storage."""
+    offset = int(kind == "unaligned")
+    flat = rng.uniform(-1, 1, h * pack * d + offset).astype(np.float32)
+    hot = torch.from_numpy(flat).to(device)[offset:].view(h, pack * d)
     rows = h * pack
     ids = rng.integers(0, rows, n).astype(np.int64)
     outside = np.array([rows, -1, -rows, rows + 7, -(2 ** 31), 2 ** 32 + 5], np.int64)
-    ids[::16] = outside[np.arange(len(ids[::16])) % len(outside)]
+    every = 16 if kind != "outside" else 1
+    at = np.arange(n)[::every]
+    if kind == "outside":
+        at = at[at % 8 != 3]
+    ids[at] = outside[np.arange(len(at)) % len(outside)]
+    if kind == "flat" or kind == "outside":
+        return hot, torch.from_numpy(ids).to(device)
     padded = np.full(-(-n // 256) * 256, rows, np.int64)
     padded[:n] = ids
     return hot, torch.from_numpy(padded.reshape(-1, 256)).to(device)
 
 
-def check_hot(gather, rng, h: int, pack: int, d: int, n: int, device) -> dict:
+def check_hot(gather, rng, h: int, pack: int, d: int, n: int, kind: str, device) -> dict:
     """``gather(hot, ids, pack)`` against the plain gather, on the int64 ids
     and on them clamped into int32; ids outside [0, H·pack) must give zero
     rows."""
-    hot, ids = hot_inputs(rng, h, pack, d, n, device)
+    hot, ids = hot_inputs(rng, h, pack, d, n, kind, device)
     ids32 = ids.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
     want = probe_ref.hot_gather(hot, ids, pack)
     flat = ids.reshape(-1)

@@ -74,7 +74,9 @@ SIGNATURES = {
     },
     "hot_gather": {
         "hot_gather_smem_limit": (_I, []),
+        "hot_gather_grid": (_I, [_I, _I, _I]),
         "hot_gather_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+        "hot_gather_floor": (_I, [_I, _P]),
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_smem_bytes": (ctypes.c_longlong, [_I]),

@@ -27,17 +27,35 @@
 // past its block: the last block owns every static padding chunk (65 of
 // them, 266k elements, at 16384 ids), and walking them all cost each of
 // its threads about 1040 steps where another block's take about 5.
-// Then the block streams its rows of p, m, v (or p, acc) once, with 16-byte
-// loads where D allows, updates them from the tile and writes them back.
-// The bias corrections c1, c2 come from the wrapper, computed in f32.
+// A thread loads the ids and cotangent values of four of its elements
+// before it adds any, so eight loads are in flight where the walk waited
+// on each in turn.
+// Then Adam streams the block's rows of p, m, v once, with 16-byte loads
+// where D allows, updates them from the tile and writes them back.  The
+// bias corrections c1, c2 come from the wrapper, computed in f32.
+// Rowwise AdaGrad runs 512 threads a block (its 196 blocks leave 24 warps
+// an SM where 256 left 12) and puts L = D/4 lanes across each row (D = 4,
+// 8, ..., 128 and a table aligned to a lane's 4 elements): a lane reads 4
+// values of the tile as one float4 (a warp's 8 rows at D = 16 are 512
+// contiguous bytes: no bank conflict, where one thread a row read 2 banks
+// a warp), and 16 bytes of p (8 of a bf16 table); the row's sum of g^2 is
+// taken by __shfl_xor across its lanes, its accumulator read and written
+// once, by the row's first lane, and broadcast, and its rate lr / (sqrt(acc)
+// + eps) is one division a row.  A thread's first 4 rows of p and acc (the
+// whole block at D = 16) load before the tile is summed: they do not
+// depend on it, since only this block updates its rows, so their latency
+// hides behind the walk.  Any other D, or a table that is not so aligned,
+// takes a warp a row, lanes over its elements.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // a block of Adam
+constexpr int kAdagradThreads = 512;  // a block of rowwise AdaGrad
 
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
@@ -48,14 +66,18 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
-// Sum the block's chunks into the shared tile g[block * D].
+// Sum the block's chunks into the shared tile g[block * D], with all
+// blockDim.x threads.
 template <typename C>
 __device__ void accumulate(float* g, const C* __restrict__ cot,
                            const int* __restrict__ ids,
                            const int* __restrict__ cptr, int k, int V, int D,
                            int block, int ch, int nc) {
+  const int T = blockDim.x;
   const int rows = block * D;
-  for (int i = threadIdx.x; i < rows; i += kThreads) g[i] = 0.f;
+  for (int i = threadIdx.x; i < rows / 4; i += T)
+    reinterpret_cast<float4*>(g)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = rows / 4 * 4 + threadIdx.x; i < rows; i += T) g[i] = 0.f;
   __syncthreads();
   const int c0 = min(cptr[k], nc), c1 = max(c0, min(cptr[k + 1], nc));
   const int base = k * block;
@@ -64,14 +86,28 @@ __device__ void accumulate(float* g, const C* __restrict__ cot,
   const C* bcot = cot + static_cast<size_t>(c0) * ch * D;
   // The ids ascend through a block's chunks, and the sentinel that pads
   // them lies above every vocab id; a thread's slots ascend too, so its
-  // first id past the block ends its walk.  The last block thus reads one
-  // sentinel per thread of the static padding chunks, not all of them.
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int slot = e / D;
-    const int id = bids[slot];
-    const int local = id - base;
-    if (local >= block || id >= V) break;
-    if (local >= 0) atomicAdd(&g[local * D + (e - slot * D)], load_f(bcot, e));
+  // first id past the block ends its walk.  The last block thus reads a
+  // few sentinels per thread of the static padding chunks, not all of them.
+  // A batch's ids and cotangent values load together (a value's address
+  // does not depend on its id), and only then are they added.
+  constexpr int kBatch = 4;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * T) {
+    int id[kBatch];
+    float c[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * T;
+      id[u] = e < n ? bids[e / D] : INT_MAX;
+      c[u] = e < n ? load_f(bcot, e) : 0.f;
+    }
+    bool past = false;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * T, local = id[u] - base;
+      past = past || local >= block || id[u] >= V;
+      if (!past && local >= 0) atomicAdd(&g[local * D + e % D], c[u]);
+    }
+    if (past) break;
   }
   __syncthreads();
 }
@@ -95,7 +131,8 @@ __global__ void __launch_bounds__(kThreads)
                 const C* __restrict__ cot, const int* __restrict__ ids,
                 const int* __restrict__ cptr, int V, int D, int block, int ch,
                 int nc, AdamHyper h, int vec) {
-  extern __shared__ float g[];
+  extern __shared__ float4 g4[];
+  float* const g = reinterpret_cast<float*>(g4);
   const int k = blockIdx.x;
   accumulate(g, cot, ids, cptr, k, V, D, block, ch, nc);
   const int r0 = k * block;
@@ -128,33 +165,123 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// 4 consecutive table elements as f32: 16 bytes of an f32 table, 8 of bf16
+__device__ __forceinline__ void load4(const float* p, size_t e, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p + e);
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, size_t e, float (&x)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p + e);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, size_t e, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p + e) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, size_t e, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&a);
+  t.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p + e) = t;
+}
+
+// The AdaGrad step of one value; rate = lr / (sqrt(acc) + eps), one
+// division a row: a division a value bound the update phase by its
+// arithmetic.  g * rate is lr * g / (sqrt(acc) + eps) to about an ulp.
+__device__ __forceinline__ float adagrad_one(float p, float g, float rate, float lr,
+                                             float wd) {
+  float upd = g * rate;
+  if (wd != 0.f) upd = upd + (lr * wd) * p;
+  return p - upd;
+}
+
+// L lanes a row, 4 elements a lane (D = 4L); kGroup rows a thread in
+// flight.  Shuffles run on every lane: rows past the block only mask their
+// loads and stores.
+template <typename P, typename C, int L>
+__global__ void __launch_bounds__(kAdagradThreads)
+    adagrad_lanes_kernel(P* __restrict__ p, float* __restrict__ acc,
+                         const C* __restrict__ cot, const int* __restrict__ ids,
+                         const int* __restrict__ cptr, int V, int block, int ch,
+                         int nc, float lr, float eps, float wd) {
+  constexpr int D = 4 * L, kRowsAPass = kAdagradThreads / L, kGroup = 4;
+  extern __shared__ float4 g4[];
+  const int k = blockIdx.x;
+  const int r0 = k * block;
+  const int rows = min(V, r0 + block) - r0;
+  const int q = threadIdx.x % L, first = threadIdx.x / L;
+  float x[kGroup][4] = {}, a0[kGroup] = {};
+  auto load_group = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int r = base + first + u * kRowsAPass;
+      if (r < rows) {
+        load4(p, static_cast<size_t>(r0 + r) * D + 4 * q, x[u]);
+        a0[u] = q == 0 ? acc[r0 + r] : 0.f;
+      }
+    }
+  };
+  load_group(0);
+  accumulate(reinterpret_cast<float*>(g4), cot, ids, cptr, k, V, D, block, ch, nc);
+  const float inv_d = 1.f / D;
+  for (int base = 0;;) {
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int r = base + first + u * kRowsAPass;
+      const bool in = r < rows;
+      const float4 gv = in ? g4[r * L + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float s = gv.x * gv.x + gv.y * gv.y + gv.z * gv.z + gv.w * gv.w;
+#pragma unroll
+      for (int off = L / 2; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const float a = __shfl_sync(0xffffffffu, a0[u], 0, L) + s * inv_d;
+      if (in) {
+        if (q == 0) acc[r0 + r] = a;
+        const float rate = lr / (sqrtf(a) + eps);
+        const float gq[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[u][j] = adagrad_one(x[u][j], gq[j], rate, lr, wd);
+        store4(p, static_cast<size_t>(r0 + r) * D + 4 * q, x[u]);
+      }
+    }
+    base += kGroup * kRowsAPass;
+    if (base >= rows) break;
+    load_group(base);
+  }
+}
+
+// Any D and alignment: a warp a row, lanes over its elements.
 template <typename P, typename C>
-__global__ void __launch_bounds__(kThreads)
-    adagrad_kernel(P* __restrict__ p, float* __restrict__ acc,
-                   const C* __restrict__ cot, const int* __restrict__ ids,
-                   const int* __restrict__ cptr, int V, int D, int block,
-                   int ch, int nc, float lr, float eps, float wd) {
-  extern __shared__ float g[];
+__global__ void __launch_bounds__(kAdagradThreads)
+    adagrad_warp_kernel(P* __restrict__ p, float* __restrict__ acc,
+                        const C* __restrict__ cot, const int* __restrict__ ids,
+                        const int* __restrict__ cptr, int V, int D, int block,
+                        int ch, int nc, float lr, float eps, float wd) {
+  extern __shared__ float4 g4[];
+  float* const g = reinterpret_cast<float*>(g4);
   const int k = blockIdx.x;
   accumulate(g, cot, ids, cptr, k, V, D, block, ch, nc);
   const int r0 = k * block;
   const int rows = min(V, r0 + block) - r0;
+  const int lane = threadIdx.x % 32;
   const float inv_d = 1.f / D;
-  // one thread per row: the row's mean g^2 feeds its one accumulator
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
+  for (int r = threadIdx.x / 32; r < rows; r += kAdagradThreads / 32) {
     const float* gr = g + r * D;
     float s = 0.f;
-    for (int j = 0; j < D; ++j) s += gr[j] * gr[j];
-    const float a = acc[r0 + r] + s * inv_d;
-    acc[r0 + r] = a;
-    const float denom = sqrtf(a) + eps;
-    const size_t e = static_cast<size_t>(r0 + r) * D;
-    for (int j = 0; j < D; ++j) {
-      const float pc = load_f(p, e + j);
-      float upd = lr * gr[j] / denom;
-      if (wd != 0.f) upd = upd + (lr * wd) * pc;
-      store_f(p, e + j, pc - upd);
+    for (int j = lane; j < D; j += 32) s += gr[j] * gr[j];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+    float a = 0.f;
+    if (lane == 0) {
+      a = acc[r0 + r] + s * inv_d;
+      acc[r0 + r] = a;
     }
+    const float rate = lr / (sqrtf(__shfl_sync(0xffffffffu, a, 0)) + eps);
+    const size_t e = static_cast<size_t>(r0 + r) * D;
+    for (int j = lane; j < D; j += 32)
+      store_f(p, e + j, adagrad_one(load_f(p, e + j), gr[j], rate, lr, wd));
   }
 }
 
@@ -169,10 +296,12 @@ bool bad_args(int V, int D, int block, int ch, int nc) {
          static_cast<long long>(V + block) * D >= (1LL << 31);
 }
 
+// Above 48 KB a block's dynamic shared memory must be opted in to.
 template <typename K>
 void allow_smem(K kernel, size_t smem) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
 }
 
 template <typename P, typename C>
@@ -192,17 +321,41 @@ void launch_adam(void* p, void* m, void* v, const void* cot, const void* ids,
       static_cast<const int*>(cptr), V, D, block, ch, nc, h, vec);
 }
 
+template <typename P, typename C, int L>
+void run_lanes(void* p, void* acc, const void* cot, const void* ids, const void* cptr,
+               int V, int block, int ch, int nc, float lr, float eps, float wd,
+               int nb, size_t smem, cudaStream_t s) {
+  allow_smem(adagrad_lanes_kernel<P, C, L>, smem);
+  adagrad_lanes_kernel<P, C, L><<<nb, kAdagradThreads, smem, s>>>(
+      static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot),
+      static_cast<const int*>(ids), static_cast<const int*>(cptr), V, block, ch, nc,
+      lr, eps, wd);
+}
+
 template <typename P, typename C>
 void launch_adagrad(void* p, void* acc, const void* cot, const void* ids,
                     const void* cptr, int V, int D, int block, int ch, int nc,
                     float lr, float eps, float wd, void* stream) {
   const int nb = (V + block - 1) / block;
   const size_t smem = static_cast<size_t>(block) * D * sizeof(float);
-  allow_smem(adagrad_kernel<P, C>, smem);
-  adagrad_kernel<P, C><<<nb, kThreads, smem, as_stream(stream)>>>(
-      static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot),
-      static_cast<const int*>(ids), static_cast<const int*>(cptr), V, D, block,
-      ch, nc, lr, eps, wd);
+  cudaStream_t s = as_stream(stream);
+  // lanes across a row where D is 4 times a power of two up to 32 lanes
+  // and the table is aligned to a lane's 4 elements
+  const bool aligned = reinterpret_cast<uintptr_t>(p) % (4 * sizeof(P)) == 0;
+  switch (aligned && D % 4 == 0 ? D / 4 : 0) {
+    case 1: run_lanes<P, C, 1>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 2: run_lanes<P, C, 2>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 4: run_lanes<P, C, 4>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 8: run_lanes<P, C, 8>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 16: run_lanes<P, C, 16>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 32: run_lanes<P, C, 32>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    default:
+      allow_smem(adagrad_warp_kernel<P, C>, smem);
+      adagrad_warp_kernel<P, C><<<nb, kAdagradThreads, smem, s>>>(
+          static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot),
+          static_cast<const int*>(ids), static_cast<const int*>(cptr), V, D, block, ch, nc,
+          lr, eps, wd);
+  }
 }
 
 }  // namespace

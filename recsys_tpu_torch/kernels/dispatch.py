@@ -696,8 +696,10 @@ def perrow_colsum(x: torch.Tensor) -> torch.Tensor:
 def hot_gather(hot: torch.Tensor, ids: torch.Tensor, pack: int = 1) -> torch.Tensor:
     """hot (H, pack·d) f32, integer ids (any shape) -> (ids.numel(), d) f32,
     the rows of hot slot ids ``slot·pack + sub`` and a zero row for an id
-    outside [0, H·pack); see ``kernels/probes.py``.  The kernel holds the
-    whole buffer in shared memory and refuses one beyond the card's limit."""
+    outside [0, H·pack); see ``kernels/probes.py``.  The kernel reads the
+    buffer through the caches, a 16-byte piece of a row a thread over every
+    SM; the buffer is on-chip by contract, so one beyond the card's opt-in
+    shared memory is refused."""
     if hot.dim() != 2 or hot.dtype != torch.float32 or pack < 1 or hot.shape[1] % pack:
         raise ValueError(f"hot_gather: expected hot (H, pack*d) f32 with pack={pack}, got "
                          f"{hot.dtype} {tuple(hot.shape)}")

@@ -8,7 +8,7 @@ the most frequent rows from a staged hot buffer beats the plain gather:
             (100,000, 16) f32 table, as ``StackedEmbedding`` gathers.
   split  -- stage the top-H rows of each table (``index_select``), gather
             the hot ids from them with the hot-gather kernel
-            (``dispatch.hot_gather``, the buffer in shared memory), gather
+            (``dispatch.hot_gather``, the rows read through L2), gather
             the cold ids from the table, and put both back in batch order.
             Every step is timed.
 

@@ -294,9 +294,10 @@ def test_mlp_kernels_bit_equal_where_chunks_do_not_divide_the_ring(cuda, dims):
         assert _bwd_equal(dispatch.fused_mlp_backward(x, g, ws, bs), want_b)
 
 
-def _embedding_case(cuda, v, d, n, block, *, hot=False, seed=0, cot_scale=1e-2):
+def _embedding_case(cuda, v, d, n, block, *, hot=False, seed=0, cot_scale=1e-2, ids=None):
     rng = np.random.default_rng(seed)
-    ids = (rng.integers(0, 3, n) * 7 if hot else rng.integers(0, v, n)).astype(np.int32)
+    if ids is None:
+        ids = (rng.integers(0, 3, n) * 7 if hot else rng.integers(0, v, n)).astype(np.int32)
     ids2d, idx, cptr = host_prep_group(ids, vp=v, block=block, ch=64)
     cot = (rng.standard_normal((n, d)) * cot_scale).astype(np.float32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
@@ -368,6 +369,75 @@ def test_embedding_rowwise_adagrad_kernel_matches_plain(cuda, p_dtype, mm_bf16, 
     tol = dict(rtol=8e-3, atol=1e-6) if p_dtype == torch.bfloat16 else \
         dict(rtol=1e-3, atol=2e-7)
     torch.testing.assert_close(state[0].float(), plain[0].float(), **tol)
+
+
+def _adagrad_matches_plain(cuda, v, d, n, block, *, p_dtype=torch.float32, mm_bf16=True,
+                           wd=0.0, ids=None, offset=0, cot_scale=1e-2):
+    """One rowwise AdaGrad launch against the plain step from the same
+    state; the table a view ``offset`` elements into its storage."""
+    cot, ids2d, cptr, p, _, _, to = _embedding_case(cuda, v, d, n, block, seed=d, ids=ids,
+                                                    cot_scale=cot_scale)
+    acc = np.random.default_rng(2).uniform(0, 1e-4, v).astype(np.float32)
+    storage = torch.zeros(v * d + offset, dtype=p_dtype, device=cuda)
+    table = storage[offset:].view(v, d)
+    table.copy_(to(p))
+    state = [table, to(acc)]
+    plain = [table.clone(), state[1].clone()]
+    before = dispatch.LAUNCHES["embedding_rowwise_adagrad"]
+    dispatch.fused_embedding_rowwise_adagrad(*state, cot, ids2d, cptr, block=block,
+                                             lr=1e-3, wd=wd, mm_bf16=mm_bf16)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["embedding_rowwise_adagrad"] == before + 1
+    emb_ref.fused_rowwise_adagrad(*plain, cot, ids2d, cptr, block=block, lr=1e-3, wd=wd,
+                                  mm_bf16=mm_bf16)
+    # as tests/test_streaming_embed.py::test_fused_rowwise_adagrad_matches_sparse_path
+    torch.testing.assert_close(state[1], plain[1], rtol=1e-4, atol=1e-9)
+    tol = dict(rtol=8e-3, atol=1e-6) if p_dtype == torch.bfloat16 else \
+        dict(rtol=1e-3, atol=2e-7)
+    torch.testing.assert_close(state[0].float(), plain[0].float(), **tol)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 32, 64])
+def test_embedding_rowwise_adagrad_kernel_at_every_row_width(cuda, p_dtype, mm_bf16, wd, d):
+    # 1000 rows in blocks of 96: a ragged last block of 40 rows, and no id
+    # in block 3 (rows 288-383), whose rows still decay with g = 0
+    ids = np.random.default_rng(d).integers(0, 1000 - 96, 700)
+    ids = np.where(ids >= 288, ids + 96, ids).astype(np.int32)
+    _adagrad_matches_plain(cuda, 1000, d, 700, 96, p_dtype=p_dtype, mm_bf16=mm_bf16, wd=wd,
+                           ids=ids)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_embedding_rowwise_adagrad_kernel_on_4096_duplicates(cuda, p_dtype):
+    _adagrad_matches_plain(cuda, 300, 16, 4096, 8, p_dtype=p_dtype,
+                           ids=np.full(4096, 37, np.int32), cot_scale=1.0)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_embedding_rowwise_adagrad_kernel_on_a_table_4_bytes_off(cuda, p_dtype, d):
+    # 4 bytes into its storage: not aligned to a lane's 4 elements, so the
+    # warp-a-row path
+    _adagrad_matches_plain(cuda, 1000, d, 700, 96, p_dtype=p_dtype, wd=0.01,
+                           offset=1 if p_dtype == torch.float32 else 2)
+
+
+@pytest.mark.parametrize("kind", ["adam", "adagrad"])
+def test_embedding_updates_take_a_tile_of_odd_length(cuda, kind):
+    # a (7, 5) tile: 35 floats, not whole float4s to zero; 50 = 7 * 7 + 1 rows
+    if kind == "adagrad":
+        return _adagrad_matches_plain(cuda, 50, 5, 300, 7, wd=0.01)
+    cot, ids2d, cptr, p, m, vv, to = _embedding_case(cuda, 50, 5, 300, 7)
+    state = [to(p), to(m), to(vv)]
+    plain = [t.clone() for t in state]
+    dispatch.fused_embedding_adam(*state, cot, ids2d, cptr, 3, block=7, lr=1e-3, wd=0.01)
+    emb_ref.fused_adam(*plain, cot, ids2d, cptr, 3, block=7, lr=1e-3, wd=0.01)
+    torch.cuda.synchronize()
+    for name, got, want in zip("pmv", state, plain):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-7, msg=name)
 
 
 @pytest.mark.parametrize("opt", ["fused_adam", "fused_rowwise_adagrad"])
@@ -783,10 +853,9 @@ def test_perrow_walk_kernel_matches_plain_bit_for_bit(cuda, case):
 
 @pytest.mark.parametrize("case", list(probe_check.HOT_CASES))
 def test_hot_gather_kernel_matches_plain_bit_for_bit(cuda, case):
-    h, pack, d, n = probe_check.HOT_CASES[case]
     dispatch.reset_launches()
-    res = probe_check.check_hot(dispatch.hot_gather, np.random.default_rng(32), h, pack, d, n,
-                                cuda)
+    res = probe_check.check_hot(dispatch.hot_gather, np.random.default_rng(32),
+                                *probe_check.HOT_CASES[case], cuda)
     assert dispatch.LAUNCHES["hot_gather"] == 2  # int64 ids, then int32
     assert probe_check.passed(res), res
 

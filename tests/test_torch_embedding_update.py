@@ -79,6 +79,11 @@ CASES = {
     "pack8-wd": (500, 8, 16, 256, 16, 48, 0.01, False, "f32", False),
     "pack8-bf16-table": (500, 8, 16, 256, 16, 64, 0.0, False, "bf16", True),
     "pack1-bf16-table-wd": (256, 1, 8, 300, 32, 32, 0.01, False, "bf16", False),
+    # the row widths of the card's AdaGrad tests (lanes across a row at D = 8
+    # and 32, a warp a row at D = 12)
+    "pack1-d8": (512, 1, 8, 256, 16, 16, 0.0, False, "f32", True),
+    "pack1-d12-wd": (320, 1, 12, 300, 16, 32, 0.01, False, "f32", False),
+    "pack1-d32-bf16-table": (256, 1, 32, 200, 16, 16, 0.0, False, "bf16", True),
 }
 
 

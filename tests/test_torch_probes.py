@@ -313,9 +313,9 @@ def _checks():
         if n <= 1000:  # the plain walk is a Python loop
             yield f"perrow {name}", lambda r, n=n, w=w, o=offset: probe_check.check_perrow(
                 dispatch.perrow_colsum, r, n, w, o, "cpu")
-    for name, (h, pack, d, n) in probe_check.HOT_CASES.items():
-        yield f"hot {name}", lambda r, h=h, p=pack, d=d, n=n: probe_check.check_hot(
-            dispatch.hot_gather, r, h, p, d, n, "cpu")
+    for name, args in probe_check.HOT_CASES.items():
+        yield f"hot {name}", lambda r, a=args: probe_check.check_hot(
+            dispatch.hot_gather, r, *a, "cpu")
 
 
 @pytest.mark.parametrize("name, check", list(_checks()), ids=[c[0] for c in _checks()])
