@@ -10,14 +10,25 @@ checkout.  Phases, one JSON line each:
 2. build     -- nvcc builds every kernel from recsys_tpu_torch/kernels/csrc.
 3. check     -- each kernel against its plain PyTorch version on the card,
                 TF32 off: the forward kernels at the serving shapes and a
-                ragged batch, f32 and bf16; the MLP backward for both towers
+                ragged batch, f32 and bf16; the dot interaction also at one,
+                two, 64 and the most fields it takes at D = 128, D = 1, 8,
+                32 and 36, on an unaligned input; the MLP backward for both towers
                 at 4096 and 1000 rows, bit for bit on integer values and
                 within limits on random weights; the embedding updates on one
                 100k x 16 table with a 16384-id batch, uniform and skewed,
                 with a ragged last block, f32 and bf16 tables, bf16 and f32
                 sums and weight decay off and on; rowwise AdaGrad also at
                 D = 128 (blocks of 256) and 12, on a table 4 bytes into
-                its storage and on 16384 occurrences of one row.
+                its storage and on 16384 occurrences of one row; fused Adam
+                at D = 12, on a table 4 bytes into its storage, and as one
+                launch over unequal tables, one no id touches and one of
+                no rows.
+3b. f4       -- the routes of shapes outside a kernel's domain against the
+                same calls on the CPU, with no launch counted: AutoInt at
+                D = 8 (two heads of width 4), a request and a train step;
+                attention at head width 12 with its gradients; the dot
+                interaction at F = 80, D = 800 with its gradient; top-k at
+                D = 1024 through both retrieval functions.
 4. serve     -- DLRM at the bench widths (26 x 100k-row tables, D = 16,
                 bottom 13-512-256-16-16, top 367-1024-1024-512-256-1, bf16
                 compute, 4 dense microbatches), weights made from the seed in
@@ -34,7 +45,10 @@ checkout.  Phases, one JSON line each:
                 against the same step through the plain versions from a copy
                 of the state; step time, examples/s, peak memory and a
                 profile of one step.
-6. timing    -- per-kernel ms beside its bound and the plain version's ms;
+6. timing    -- per-kernel ms beside its bound and the plain version's ms
+                (the dot interaction with its launch floor and
+                torch.bmm's whole Gram matrix; fused Adam as the step
+                launches it, 26 tables at once, and one table a launch);
                 the fused MLPs per tower with the unfused cuBLAS tower
                 (unfused_ms) and each launch apart (pre-pass, chain, dW),
                 with the cluster size C, the clusters the card holds at
@@ -369,7 +383,7 @@ def phase_check(rng, dev) -> dict:
     import torch
 
     from recsys_tpu_torch.kernels import dispatch
-    from recsys_tpu_torch.kernels.interactions import dot_interaction
+    from recsys_tpu_torch.kernels.interactions import dot_in_domain, dot_interaction
     from recsys_tpu_torch.kernels.mlp import mlp_forward
 
     worst = {"dot_interaction": 0.0, "mlp_fwd": 0.0}
@@ -385,6 +399,22 @@ def phase_check(rng, dev) -> dict:
                                   dot_interaction(x, si), DOT_TOL)
                 if dtype == torch.bfloat16 and not si:
                     worst["dot_interaction"] = max(worst["dot_interaction"], err["max_abs_err"])
+    # the other layouts: one field (with the diagonal), two, a row width
+    # that is not whole float4s, 64 fields, and the widest F the kernel
+    # takes at D = 128 with the diagonal (dot_in_domain's edge), on the
+    # tensor cores in bf16; ragged batches, and an input 4 bytes into its
+    # storage (not 16-byte aligned: the CUDA cores)
+    widest = max(f_ for f_ in range(2, 400) if dot_in_domain(f_, 128, True))
+    for b, f_, d, offset in ((7, 1, 8, 0), (33, 2, 36, 0), (513, 27, 1, 0), (1001, 64, 8, 1),
+                             (1001, 64, 32, 0), (65, widest, 128, 0)):
+        storage = torch.from_numpy(rng.standard_normal(b * f_ * d + offset, dtype=np.float32)
+                                   * np.float32(0.5)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = storage.to(dtype)[offset:].view(b, f_, d)
+            for si in (False, True) if f_ > 1 else (True,):
+                check_close(f"dot_interaction b={b} f={f_} d={d} offset={offset} {dtype} "
+                            f"self={si}", dispatch.dot_interaction(x, si),
+                            dot_interaction(x, si), DOT_TOL)
     top_in = EMBED_DIM + f * (f - 1) // 2
     for name, dims in (("bottom", [NUM_DENSE, *BOTTOM, EMBED_DIM]),
                        ("top", [top_in, *TOP, 1])):
@@ -580,6 +610,42 @@ def check_embedding_update(rng, dev) -> dict:
         if main:
             worst["embedding_rowwise_adagrad"] = max(worst["embedding_rowwise_adagrad"],
                                                      err["max_abs_err"])
+    # Adam's other layouts: a pass of unequal tables in one launch (a
+    # bench table, a ragged small one, one of 37 rows in blocks of 16, one
+    # no id touches, one of no rows), single values at D = 12 and on a table
+    # 4 bytes into its storage
+    tabs = [embedding_inputs(rng, dev, v, False, blk) for v, blk in
+            ((VOCAB, UPDATE_BLOCK), (1000, 96), (37, 16), (5000, UPDATE_BLOCK))]
+    tabs[3]["ids2d"].fill_(emb_ref.num_blocks(5000, UPDATE_BLOCK) * UPDATE_BLOCK)
+    tabs[3]["cptr"].zero_()  # every slot the sentinel, every block no chunk
+    tabs.append(dict(tabs[2], cptr=tabs[2]["cptr"][:1].clone(),
+                     **{k: tabs[0][k][:0] for k in ("p", "m", "v")}))
+    blocks = [UPDATE_BLOCK, 96, 16, UPDATE_BLOCK, 16]
+    got = [[a[k].clone() for a in tabs] for k in "pmv"]
+    want = [[a[k].clone() for a in tabs] for k in "pmv"]
+    before = dispatch.LAUNCHES["embedding_adam"]
+    cols = [[a[k] for a in tabs] for k in ("cot", "ids2d", "cptr")]
+    dispatch.fused_embedding_adam_pass(*got, *cols, 3, blocks=blocks, lr=LR)
+    if dispatch.LAUNCHES["embedding_adam"] != before + 1:
+        raise AssertionError("embedding_adam pass: not one launch")
+    for t, block in enumerate(blocks):
+        emb_ref.fused_adam(*(w[t] for w in want), *(c[t] for c in cols), 3, block=block,
+                           lr=LR)
+        for key, u, v in zip("pmv", got, want):
+            if u[t].numel():  # the table of no rows has nothing to hold
+                check_close(f"embedding_adam pass table {t} {key}", u[t], v[t], ADAM_TOL)
+    for d, offset in ((12, 0), (EMBED_DIM, 1)):
+        a = embedding_inputs(rng, dev, VOCAB, True, UPDATE_BLOCK, d=d)
+        storage = torch.empty(VOCAB * d + offset, device=dev)
+        p = storage[offset:].view(VOCAB, d)
+        p.copy_(a["p"])
+        got, want = [p, a["m"].clone(), a["v"].clone()], [p.clone(), a["m"], a["v"]]
+        dispatch.fused_embedding_adam(*got, a["cot"], a["ids2d"], a["cptr"], 3,
+                                      block=UPDATE_BLOCK, lr=LR)
+        emb_ref.fused_adam(*want, a["cot"], a["ids2d"], a["cptr"], 3, block=UPDATE_BLOCK,
+                           lr=LR)
+        for key, u, v in zip("pmv", got, want):
+            check_close(f"embedding_adam D={d} offset={offset} {key}", u, v, ADAM_TOL)
     # rowwise AdaGrad's other layouts: 32 lanes a row at D = 128 (blocks of
     # 256 rows, a 128 KB tile past 48 KB), a warp a row at D = 12 and on a
     # table 4 bytes into its storage, and 16384 occurrences of one row
@@ -599,6 +665,111 @@ def check_embedding_update(rng, dev) -> dict:
         check_close(f"embedding_rowwise_adagrad {name} p", got[0], want[0], ADAGRAD_P_TOL)
         check_close(f"embedding_rowwise_adagrad {name} acc", got[1], want[1], ACC_TOL)
     return worst
+
+
+def phase_f4(rng, dev) -> dict:
+    """The routes of shapes outside a kernel's domain, each on the card
+    against the same call on the CPU, with the launch counts zeroed just
+    before and read just after: none may count a launch.  AutoInt at D = 8
+    (two heads of width 4): a request and a train step; multi-head
+    attention at head width 12, forward and gradients; DotInteraction at
+    F = 80, D = 800, forward and gradient; top-k at D = 1024 through both
+    retrieval functions (retrieval_check's near-tie rules, and the CPU's
+    scores)."""
+    import torch
+
+    import retrieval_check as rc
+    from recsys_tpu_torch.data.realistic import realistic_criteo
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import interactions as int_ref
+    from recsys_tpu_torch.ops.attention import MultiHeadAttention
+    from recsys_tpu_torch.ops.interactions import DotInteraction
+    from recsys_tpu_torch.train import retrieval
+    from recsys_tpu_torch.train.loop import Trainer
+
+    res = {}
+
+    def no_launch(name):
+        if any(dispatch.LAUNCHES.values()):
+            raise AssertionError(f"f4 {name}: the route launched {dispatch.LAUNCHES}")
+
+    # AutoInt at D = 8: a request and a step, the card against the CPU
+    schema, data, _ = realistic_criteo(num_examples=2 * CTR_BATCH, embed_dim=8, seed=3)
+    batch = {k: v[:CTR_BATCH] for k, v in data.items()}
+    model = ctr_model_from_jax(rng, "autoint", schema)
+    ref = Trainer(copy.deepcopy(model), device="cpu")
+    trainer = Trainer(model)
+    dispatch.reset_launches()
+    got = trainer.predict(batch, batch_size=CTR_BATCH)
+    loss_k = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    no_launch("autoint D=8")
+    want = ref.predict(batch, batch_size=CTR_BATCH)
+    res["autoint_d8_logits"] = check_close("f4 autoint D=8 logits", torch.from_numpy(got),
+                                           torch.from_numpy(want), CTR_LOGIT_TOL)
+    res["autoint_d8_step"] = compare_sasrec_step("autoint D=8", trainer, ref, loss_k,
+                                                 ref.train_step(batch), label="f4")
+
+    # attention at head width 12, causal, some rows with no key
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(24, 2, causal=True)
+    mask = torch.from_numpy(rng.random((64, 50)) > 0.3)
+    mask[:8] = False
+    x = torch.from_numpy(rng.standard_normal((64, 50, 24), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 50, 24), dtype=np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(mha).to(where)
+        xi = x.detach().to(where).requires_grad_()
+        dispatch.reset_launches()
+        out = m(xi, mask=mask.to(where))
+        (out * w.to(where)).sum().backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            no_launch("attention head width 12")
+        outs[str(where)] = [out.detach(), xi.grad, *(q.grad for q in m.parameters())]
+    for i, (u, v) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+        err = check_close(f"f4 attention head width 12 {'out' if i == 0 else f'grad {i}'}",
+                          u.cpu(), v, SAS_LOGIT_TOL)
+        res.setdefault("attention_w12", err)
+
+    # DotInteraction past the kernel's shared memory
+    f_, d = 80, 800
+    assert not int_ref.dot_in_domain(f_, d, False)
+    x = torch.from_numpy(rng.standard_normal((64, f_, d), dtype=np.float32) * np.float32(0.3))
+    g = torch.from_numpy(rng.standard_normal((64, f_ * (f_ - 1) // 2), dtype=np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        xi = x.detach().to(where).requires_grad_()
+        dispatch.reset_launches()
+        out = DotInteraction()(xi)
+        (out * g.to(where)).sum().backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+            no_launch("dot F=80 D=800")
+        outs[str(where)] = (out.detach(), xi.grad)
+    res["dot_f80_d800"] = check_close("f4 dot F=80 D=800 out", outs[str(dev)][0].cpu(),
+                                      outs["cpu"][0], DOT_TOL)
+    check_close("f4 dot F=80 D=800 grad", outs[str(dev)][1].cpu(), outs["cpu"][1], DOT_TOL)
+
+    # top-k at D = 1024
+    q, items, dup = rc.topk_inputs(rng, 512, 5000, 1024, dev)
+    for fn in (retrieval.topk_scores, retrieval.topk_scores_streaming):
+        dispatch.reset_launches()
+        r = rc.check_topk(q, items, 10, fn, dup)
+        torch.cuda.synchronize()
+        no_launch(f"{fn.__name__} D=1024")
+        v_cpu, _ = fn(q.cpu(), items.cpu(), 10)
+        v, _ = fn(q, items, 10)
+        r["cpu_within"] = bool(((v.cpu() - v_cpu).abs() <= rc.score_limit(q, items).cpu()).all())
+        emit({"phase": "check", "case": f"f4 {fn.__name__} D=1024", **r})
+        if not (r["ok"] and r["cpu_within"]):
+            raise AssertionError(f"f4 {fn.__name__} D=1024: {r}")
+        res[f"{fn.__name__}_d1024"] = r
+    emit({"phase": "f4", "routes": sorted(res)})
+    del model, trainer, ref
+    torch.cuda.empty_cache()
+    return res
 
 
 def jax_layout_params(rng) -> dict:
@@ -929,10 +1100,12 @@ def phase_train(params, dev) -> dict:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = dict(dispatch.LAUNCHES)
-        kernel = "embedding_adam" if opt == "fused_adam" else "embedding_rowwise_adagrad"
+        # fused Adam takes every table in one launch, AdaGrad one a table
+        kernel, per_step = (("embedding_adam", 1) if opt == "fused_adam" else
+                            ("embedding_rowwise_adagrad", NUM_SPARSE))
         expected = dict.fromkeys(launches, 0)
         expected.update({"dot_interaction": MICROBATCH * TRAIN_STEPS,
-                         kernel: NUM_SPARSE * TRAIN_STEPS,
+                         kernel: per_step * TRAIN_STEPS,
                          "mlp_fwd": 2 * MICROBATCH * TRAIN_STEPS if fused else 0,
                          "mlp_bwd": 2 * MICROBATCH * TRAIN_STEPS if fused else 0})
         if launches != expected:
@@ -1032,7 +1205,7 @@ def phase_timing(rng, dev) -> dict:
     each kernel's bound."""
     import torch
 
-    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import build, dispatch
     from recsys_tpu_torch.kernels import embedding_update as emb_ref
     from recsys_tpu_torch.kernels.interactions import dot_interaction
     from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
@@ -1044,9 +1217,18 @@ def phase_timing(rng, dev) -> dict:
     # bf16 in, f32 out; the products are bf16, so the tensor-core peak
     bound_ms, kind = bound(b * f * EMBED_DIM * 2 + b * p * 4, 2 * b * p * EMBED_DIM,
                            BF16_FLOPS)
+    # the launch floor: an empty kernel at the kernel's grid and block;
+    # beside it torch.bmm(x, x.mT), the whole F x F Gram matrix (not the
+    # same function, so not library_ms)
+    lib = build.libraries()["dot_interaction"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     dot = {"ms": cuda_ms(lambda: dispatch.dot_interaction(x), iters=200),
            "plain_ms": cuda_ms(lambda: dot_interaction(x), iters=200),
            "bound_ms": bound_ms, "bound_by": kind, "library_ms": None,
+           "launch_floor_ms": cuda_ms(lambda: lib.dot_interaction_floor(b, f, EMBED_DIM, 0,
+                                                                        stream), iters=200),
+           "grid": -(-b // lib.dot_interaction_tile(f, EMBED_DIM, 0)),
+           "bmm_ms": cuda_ms(lambda: torch.bmm(x, x.mT), iters=200),
            "shape": [b, f, EMBED_DIM], "dtype": "bf16"}
     emit({"phase": "timing", "kernel": "dot_interaction", **dot})
 
@@ -1136,6 +1318,11 @@ def phase_timing(rng, dev) -> dict:
     stream_in = BATCH * EMBED_DIM * 2 + BATCH * 4 + tabs[0]["cptr"].numel() * 4
     rounds = dict(iters=2 * NUM_SPARSE, warmup=NUM_SPARSE)
     res = {}
+
+    def plain_pass(ps, ms, vs, cots, ids2ds, cptrs, step, *, blocks, lr):
+        for args in zip(ps, ms, vs, cots, ids2ds, cptrs, blocks):
+            emb_ref.fused_adam(*args[:6], step, block=args[6], lr=lr)
+
     for name, fn, kernel, plain, nbytes, nops in (
             # p, m, v read and written, f32; about 16 flops per element
             ("embedding_adam", adam, dispatch.fused_embedding_adam, emb_ref.fused_adam,
@@ -1148,6 +1335,21 @@ def phase_timing(rng, dev) -> dict:
              "plain_ms": cuda_ms(lambda: fn(plain), iters=NUM_SPARSE, warmup=5),
              "library_ms": None}
         t["bound_ms"], t["bound_by"] = bound(nbytes + stream_in, nops, F32_FLOPS)
+        if name == "embedding_adam":
+            # the main path's launch: a step's 26 tables in one launch (its
+            # plain version table by table); one table a launch, in turn,
+            # beside it as table_ms
+            def every(update):
+                update(*([a[key] for a in tabs] for key in ("p", "m", "v", "cot", "ids2d",
+                                                            "cptr")), 3,
+                       blocks=[UPDATE_BLOCK] * NUM_SPARSE, lr=LR)
+            t.update({"table_ms": t["ms"], "table_plain_ms": t["plain_ms"],
+                      "table_bound_ms": t["bound_ms"],
+                      "ms": cuda_ms(lambda: every(dispatch.fused_embedding_adam_pass), iters=4,
+                                    warmup=2),
+                      "plain_ms": cuda_ms(lambda: every(plain_pass), iters=1, warmup=1),
+                      "bound_ms": bound(NUM_SPARSE * (nbytes + stream_in), NUM_SPARSE * nops,
+                                        F32_FLOPS)[0], "tables_a_launch": NUM_SPARSE})
         emit({"phase": "timing", "kernel": name, "table": [VOCAB, EMBED_DIM],
               "ids": BATCH, "tables_rotated": NUM_SPARSE, **t})
         res[name] = t
@@ -2495,6 +2697,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     worst = phase_check(rng, dev)
+    phase_f4(rng, dev)
     params = jax_layout_params(rng)
     serve = phase_serve(params, dev)
     train = phase_train(params, dev)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time the hot gather (#13), rowwise AdaGrad (#5) and fused Adam (#4, which
-shares #5's accumulate phase) against an earlier design's sources in
-alternating turns on one card, and the DLRM rowwise-AdaGrad train step
-with either design's update kernels.
+"""Time the hot gather (#13) and rowwise AdaGrad (#5) against an earlier
+design's sources in alternating turns on one card, and the DLRM
+rowwise-AdaGrad train step with either design's update kernels (fused
+Adam, #4, which shares #5's accumulate phase, has its own turns in
+``dot_adam_turns.py``).
 
     mkdir -p .scratch/old
     for f in hot_gather.cu embedding_update.cu; do
       git show <commit>:recsys_tpu_torch/kernels/csrc/$f > .scratch/old/$f
     done
     python3 gather_adagrad_turns.py --old .scratch/old [--pairs 10] [--out FILE]
-        [--parts hot,adagrad,adam,step] [--variant LABEL=DIR ...]
+        [--parts hot,adagrad,step] [--variant LABEL=DIR ...]
 
 The earlier sources are built with ``build.NVCC_FLAGS`` beside the current
 ones (both with ``-Xptxas -v``, whose register and spill report is kept in
@@ -18,8 +19,8 @@ keep their signatures), so both sides run through ``dispatch``.  Pair i
 runs the earlier design first when i is even and the current one first
 when it is odd; each reading is ``cuda_ms`` over many calls at the shapes
 of ``chip_smoke.py``'s timing phases: #13 at the probe's hot ids (and at
-300,001 and 3,000,000 uniform ids), #5 and #4 over the 26 bench tables in
-turn, as a step calls them.  The report (one JSON object, also written to
+300,001 and 3,000,000 uniform ids), #5 over the 26 bench tables in turn,
+as a step calls them.  The report (one JSON object, also written to
 ``--out``) gives each side's readings, medians and the pairs the current
 design won, the bound, the hot gather's launch floor and
 ``index_select``'s time, and the card's ``nvidia-smi`` line.
@@ -144,7 +145,7 @@ def main(argv=None) -> int:
     parser.add_argument("--step-pairs", type=int, default=20)
     parser.add_argument("--out", type=Path,
                         default=Path("artifacts/torch/gather_adagrad_turns.json"))
-    parser.add_argument("--parts", default="hot,adagrad,adam,step")
+    parser.add_argument("--parts", default="hot,adagrad,step")
     parser.add_argument("--variant", action="append", default=[],
                         help="LABEL=DIR: DIR's hot_gather.cu or embedding_update.cu timed "
                              "against the current one")
@@ -197,7 +198,7 @@ def main(argv=None) -> int:
                 report[f"variant {label}"] = hot_turns(
                     args, dict(new_libs, hot_gather=lib), new_libs, cs, rng, dev, stream,
                     counts=(300_001, 3_000_000))
-    # -- #5 and #4 on the bench table, 26 tables in turn
+    # -- #5 on the bench table, 26 tables in turn
     tabs = [cs.embedding_inputs(rng, dev, cs.VOCAB, False, cs.UPDATE_BLOCK)
             for _ in range(cs.NUM_SPARSE)]
     for a in tabs:
@@ -208,10 +209,7 @@ def main(argv=None) -> int:
     kernels = {
         "embedding_rowwise_adagrad": (lambda a: dispatch.fused_embedding_rowwise_adagrad(
             a["p"], a["acc"], a["cot"], a["ids2d"], a["cptr"], **blk),
-            2 * 4 * vd + 2 * 4 * cs.VOCAB, 8 * vd),
-        "embedding_adam": (lambda a: dispatch.fused_embedding_adam(
-            a["p"], a["m"], a["v"], a["cot"], a["ids2d"], a["cptr"], 3, **blk),
-            6 * 4 * vd, 16 * vd)}
+            2 * 4 * vd + 2 * 4 * cs.VOCAB, 8 * vd)}
     k = iter(range(1 << 40))
 
     def calls(libs_, call, rotate=True):
@@ -221,7 +219,7 @@ def main(argv=None) -> int:
         return run
 
     rounds = dict(iters=2 * cs.NUM_SPARSE, warmup=cs.NUM_SPARSE)
-    for name, part in (("embedding_rowwise_adagrad", "adagrad"), ("embedding_adam", "adam")):
+    for name, part in (("embedding_rowwise_adagrad", "adagrad"),):
         if part not in parts:
             continue
         call, nbytes, nops = kernels[name]

@@ -13,6 +13,10 @@ Two semantics, as in the JAX package:
   and an optional causal mask ``q_index >= k_index``; a fully masked query
   row gives 0 and lse = ``NEG_INF``, and its gradients are 0.
 
+:func:`materialised_attention` is the route of a head dim outside the flash
+kernels' domain (:func:`flash_in_domain`): :func:`sdpa` with the flash
+semantics for a row with no key.
+
 The flash versions compute in f32 whatever the input type and return the
 output (and the gradients) in the inputs' types, lse (B, H, Sq) in f32.
 The backward is written out from P, lse and delta = rowsum(dO·O), the
@@ -37,6 +41,27 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.exp(logits - logits.amax(-1, keepdim=True))
     w = (w / w.sum(-1, keepdim=True)).to(v.dtype)
     return torch.matmul(w, v)
+
+
+def flash_in_domain(head_dim: int) -> bool:
+    """Whether the flash kernels take this head dim: a multiple of 8 in [8,
+    128], where ``flash_attention_{fwd,bwd}_smem_bytes`` is not 0."""
+    return 8 <= head_dim <= 128 and head_dim % 8 == 0
+
+
+def materialised_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor | None = None,
+                           causal: bool = False) -> torch.Tensor:
+    """The route of a head dim the flash kernels do not take: :func:`sdpa`
+    over the key-padding and causal masks combined (the JAX package's
+    ``_full_mask``), with the flash semantics for a query row with no key
+    to attend (0, where :func:`sdpa` averages every key).  q (B, H, Sq, D),
+    k/v (B, H, Sk, D), mask (B, Sk) or None; the gradient is autograd's."""
+    keep = keep_mask(mask, q.shape[2], k.shape[2], causal, q.device)
+    out = sdpa(q, k, v, keep)
+    if keep is None:
+        return out
+    return torch.where(keep.any(-1, keepdim=True), out, torch.zeros((), dtype=out.dtype))
 
 
 def softmax_scale(d: int) -> float:

@@ -31,6 +31,7 @@ SIGNATURES = {
     "dot_interaction": {
         "dot_interaction_tile": (_I, [_I, _I, _I]),
         "dot_interaction_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+        "dot_interaction_floor": (_I, [_I, _I, _I, _I, _P]),
     },
     "fm_interaction": {
         "fm_pairwise_vector_launch": (_I, [_P, _P, _I, _I, _I, _I, _P]),
@@ -47,9 +48,8 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P]),
     },
     "embedding_update": {
-        "embedding_adam_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                                       _P]),
+        "embedding_adam_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                                       _F, _F, _F, _F, _P]),
         "embedding_rowwise_adagrad_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                                   _I, _I, _I, _F, _F, _F, _P]),
     },

@@ -2,6 +2,7 @@
 //
 // Replaces: recsys_tpu/kernels/pallas/embedding_update_tpu.py
 //   ::fused_bwd_adam (body _kernel)                -> embedding_adam_launch
+//                                                     (up to 32 tables a launch)
 //   ::fused_bwd_rowwise_adagrad (body _adagrad_kernel)
 //                                                  -> embedding_rowwise_adagrad_launch
 // on the port's logical (V, D) tables (one vocab row per table row).
@@ -30,9 +31,20 @@
 // A thread loads the ids and cotangent values of four of its elements
 // before it adds any, so eight loads are in flight where the walk waited
 // on each in turn.
-// Then Adam streams the block's rows of p, m, v once, with 16-byte loads
-// where D allows, updates them from the tile and writes them back.  The
-// bias corrections c1, c2 come from the wrapper, computed in f32.
+// Adam cuts each table block into parts of at most 2048 values (4 parts
+// of 128 rows at block 512, D = 16), a CUDA block of 256 threads each:
+// the first design's 196 blocks of 256 threads and 8192 values each left
+// 64 SMs streaming two blocks' rows while 68 streamed one, and each block
+// walked its gradient before it loaded a byte of p, m or v.  Now each part
+// walks its block's chunks (skipping the ids below its rows, stopping past
+// them) and every thread loads its two float4s of p, m and v (16 bytes of
+// an f32 table, 8 of bf16) before the walk, so that their latency hides
+// behind it; 784 small blocks spread evenly over the SMs.  One launch may
+// also take up to 32 tables: its blocks are
+// the tables' parts one after another, so a step's 26 tables pay one
+// launch and one tail.  The bias corrections c1, c2 come from the wrapper,
+// computed in f32; each value takes one IEEE division, as the plain
+// version does.
 // Rowwise AdaGrad runs 512 threads a block (its 196 blocks leave 24 warps
 // an SM where 256 left 12) and puts L = D/4 lanes across each row (D = 4,
 // 8, ..., 128 and a table aligned to a lane's 4 elements): a lane reads 4
@@ -54,7 +66,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // a block of Adam
+constexpr int kAdamThreads = 256;     // a block of Adam
+constexpr int kAdamPre = 4;           // float4s of p, m and v a thread loads before the walk
+constexpr int kAdamValues = kAdamThreads * 4 * kAdamPre;  // values a block of Adam updates
+constexpr int kPassTables = 32;       // tables a launch of Adam takes
 constexpr int kAdagradThreads = 512;  // a block of rowwise AdaGrad
 
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
@@ -66,28 +81,28 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
-// Sum the block's chunks into the shared tile g[block * D], with all
-// blockDim.x threads.
+// Sum the chunks of table block k into the shared tile g[(hi - lo) * D]
+// for the table rows [lo, hi) (a part of the block, or all of it up to
+// V), with all blockDim.x threads.
 template <typename C>
 __device__ void accumulate(float* g, const C* __restrict__ cot,
                            const int* __restrict__ ids,
-                           const int* __restrict__ cptr, int k, int V, int D,
-                           int block, int ch, int nc) {
+                           const int* __restrict__ cptr, int k, int lo, int hi, int D,
+                           int ch, int nc) {
   const int T = blockDim.x;
-  const int rows = block * D;
+  const int rows = (hi - lo) * D;
   for (int i = threadIdx.x; i < rows / 4; i += T)
     reinterpret_cast<float4*>(g)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = rows / 4 * 4 + threadIdx.x; i < rows; i += T) g[i] = 0.f;
   __syncthreads();
   const int c0 = min(cptr[k], nc), c1 = max(c0, min(cptr[k + 1], nc));
-  const int base = k * block;
   const int n = (c1 - c0) * ch * D;  // this block's cotangent elements
   const int* bids = ids + static_cast<size_t>(c0) * ch;
   const C* bcot = cot + static_cast<size_t>(c0) * ch * D;
   // The ids ascend through a block's chunks, and the sentinel that pads
   // them lies above every vocab id; a thread's slots ascend too, so its
-  // first id past the block ends its walk.  The last block thus reads a
-  // few sentinels per thread of the static padding chunks, not all of them.
+  // first id past hi ends its walk.  The last block thus reads a few
+  // sentinels per thread of the static padding chunks, not all of them.
   // A batch's ids and cotangent values load together (a value's address
   // does not depend on its id), and only then are they added.
   constexpr int kBatch = 4;
@@ -103,8 +118,8 @@ __device__ void accumulate(float* g, const C* __restrict__ cot,
     bool past = false;
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * T, local = id[u] - base;
-      past = past || local >= block || id[u] >= V;
+      const int e = e0 + u * T, local = id[u] - lo;
+      past = past || id[u] >= hi;
       if (!past && local >= 0) atomicAdd(&g[local * D + e % D], c[u]);
     }
     if (past) break;
@@ -123,46 +138,6 @@ __device__ __forceinline__ void adam_one(float& p, float& m, float& v, float g,
   float upd = h.lr * (m * h.c1) / (sqrtf(v * h.c2) + h.eps);
   if (h.wd != 0.f) upd = upd + h.lr * (h.wd * p);
   p = p - upd;
-}
-
-template <typename P, typename C>
-__global__ void __launch_bounds__(kThreads)
-    adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
-                const C* __restrict__ cot, const int* __restrict__ ids,
-                const int* __restrict__ cptr, int V, int D, int block, int ch,
-                int nc, AdamHyper h, int vec) {
-  extern __shared__ float4 g4[];
-  float* const g = reinterpret_cast<float*>(g4);
-  const int k = blockIdx.x;
-  accumulate(g, cot, ids, cptr, k, V, D, block, ch, nc);
-  const int r0 = k * block;
-  const int n = (min(V, r0 + block) - r0) * D;
-  const size_t e0 = static_cast<size_t>(r0) * D;
-  if (vec) {  // D % 4 == 0 and every pointer 16-byte aligned
-    for (int q = threadIdx.x; q < n / 4; q += kThreads) {
-      const size_t e = e0 + 4 * static_cast<size_t>(q);
-      float4 mm = *reinterpret_cast<const float4*>(m + e);
-      float4 vv = *reinterpret_cast<const float4*>(v + e);
-      float pp[4], mv[4] = {mm.x, mm.y, mm.z, mm.w}, vw[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pp[j] = load_f(p, e + j);
-        adam_one(pp[j], mv[j], vw[j], g[4 * q + j], h);
-        store_f(p, e + j, pp[j]);
-      }
-      *reinterpret_cast<float4*>(m + e) = make_float4(mv[0], mv[1], mv[2], mv[3]);
-      *reinterpret_cast<float4*>(v + e) = make_float4(vw[0], vw[1], vw[2], vw[3]);
-    }
-  } else {
-    for (int q = threadIdx.x; q < n; q += kThreads) {
-      const size_t e = e0 + q;
-      float pp = load_f(p, e), mv = m[e], vw = v[e];
-      adam_one(pp, mv, vw, g[q], h);
-      store_f(p, e, pp);
-      m[e] = mv;
-      v[e] = vw;
-    }
-  }
 }
 
 // 4 consecutive table elements as f32: 16 bytes of an f32 table, 8 of bf16
@@ -186,6 +161,98 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, size_t e, const float (
   t.x = *reinterpret_cast<const uint32_t*>(&a);
   t.y = *reinterpret_cast<const uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p + e) = t;
+}
+
+// One table of an Adam pass.  Its table block k is cut into `parts`
+// parts of `part_rows` rows, a CUDA block each, so that a CUDA block
+// updates at most kAdamValues values; the table's CUDA blocks are
+// [first, first + nb * parts) of the launch.  vec: D % 4 == 0, p aligned
+// to 4 elements and m, v to 16 bytes.
+struct AdamTable {
+  void* p;
+  float* m;
+  float* v;
+  const void* cot;
+  const int* ids;
+  const int* cptr;
+  int V, block, nc, parts, part_rows, first, vec;
+};
+struct AdamPass {
+  AdamTable t[kPassTables];
+  int count;
+};
+
+// A CUDA block updates the rows [r0, r1) of one table: it loads its
+// threads' float4s of p, m and v (kAdamPre each) before the walk, which
+// they do not depend on (only this block updates these rows), so their
+// latency hides behind it; then it sums the part's gradient into the tile
+// and updates the loaded values.  Any D or alignment other than vec takes
+// single values after the walk.
+template <typename P, typename C>
+__global__ void __launch_bounds__(kAdamThreads)
+    adam_kernel(const __grid_constant__ AdamPass a, int D, int ch, AdamHyper h) {
+  extern __shared__ float4 g4[];
+  float* const g = reinterpret_cast<float*>(g4);
+  const int bid = blockIdx.x;
+  int t = 0;
+  while (t + 1 < a.count && bid >= a.t[t + 1].first) ++t;
+  const AdamTable& tb = a.t[t];
+  const int j = bid - tb.first, k = j / tb.parts;
+  const int r0 = k * tb.block + (j - k * tb.parts) * tb.part_rows;
+  const int r1 = min(min(tb.V, (k + 1) * tb.block), r0 + tb.part_rows);
+  if (r0 >= r1) return;  // a part past a ragged last block: the whole block leaves
+  P* const p = static_cast<P*>(tb.p);
+  float* const m = tb.m;
+  float* const v = tb.v;
+  const C* const cot = static_cast<const C*>(tb.cot);
+  const int n = (r1 - r0) * D;
+  const size_t e0 = static_cast<size_t>(r0) * D;
+  if (tb.vec) {
+    const int n4 = n / 4;
+    float pp[kAdamPre][4], mm[kAdamPre][4], vv[kAdamPre][4];
+#pragma unroll
+    for (int i = 0; i < kAdamPre; ++i) {
+      const int q = threadIdx.x + i * kAdamThreads;
+      if (q < n4) {
+        load4(p, e0 + 4 * q, pp[i]);
+        load4(m, e0 + 4 * q, mm[i]);
+        load4(v, e0 + 4 * q, vv[i]);
+      }
+    }
+    accumulate(g, cot, tb.ids, tb.cptr, k, r0, r1, D, ch, tb.nc);
+    const float4* const gt = g4;
+    auto update = [&](int q, float (&x)[4], float (&mx)[4], float (&vx)[4]) {
+      const float4 gq = gt[q];
+      const float gv[4] = {gq.x, gq.y, gq.z, gq.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) adam_one(x[u], mx[u], vx[u], gv[u], h);
+      store4(p, e0 + 4 * q, x);
+      store4(m, e0 + 4 * q, mx);
+      store4(v, e0 + 4 * q, vx);
+    };
+#pragma unroll
+    for (int i = 0; i < kAdamPre; ++i) {
+      const int q = threadIdx.x + i * kAdamThreads;
+      if (q < n4) update(q, pp[i], mm[i], vv[i]);
+    }
+    for (int q = threadIdx.x + kAdamPre * kAdamThreads; q < n4; q += kAdamThreads) {
+      float x[4], mx[4], vx[4];
+      load4(p, e0 + 4 * q, x);
+      load4(m, e0 + 4 * q, mx);
+      load4(v, e0 + 4 * q, vx);
+      update(q, x, mx, vx);
+    }
+  } else {
+    accumulate(g, cot, tb.ids, tb.cptr, k, r0, r1, D, ch, tb.nc);
+    for (int q = threadIdx.x; q < n; q += kAdamThreads) {
+      const size_t e = e0 + q;
+      float pv = load_f(p, e), mv = m[e], vw = v[e];
+      adam_one(pv, mv, vw, g[q], h);
+      store_f(p, e, pv);
+      m[e] = mv;
+      v[e] = vw;
+    }
+  }
 }
 
 // The AdaGrad step of one value; rate = lr / (sqrt(acc) + eps), one
@@ -225,7 +292,7 @@ __global__ void __launch_bounds__(kAdagradThreads)
     }
   };
   load_group(0);
-  accumulate(reinterpret_cast<float*>(g4), cot, ids, cptr, k, V, D, block, ch, nc);
+  accumulate(reinterpret_cast<float*>(g4), cot, ids, cptr, k, r0, r0 + rows, D, ch, nc);
   const float inv_d = 1.f / D;
   for (int base = 0;;) {
 #pragma unroll
@@ -262,9 +329,9 @@ __global__ void __launch_bounds__(kAdagradThreads)
   extern __shared__ float4 g4[];
   float* const g = reinterpret_cast<float*>(g4);
   const int k = blockIdx.x;
-  accumulate(g, cot, ids, cptr, k, V, D, block, ch, nc);
   const int r0 = k * block;
   const int rows = min(V, r0 + block) - r0;
+  accumulate(g, cot, ids, cptr, k, r0, r0 + rows, D, ch, nc);
   const int lane = threadIdx.x % 32;
   const float inv_d = 1.f / D;
   for (int r = threadIdx.x / 32; r < rows; r += kAdagradThreads / 32) {
@@ -304,21 +371,52 @@ void allow_smem(K kernel, size_t smem) {
                          static_cast<int>(smem));
 }
 
+// An Adam pass over `count` tables of one D, one ch and one pair of
+// types: ptrs holds each table's p, m, v, cot, ids and cptr, ints its V,
+// block and nc.
 template <typename P, typename C>
-void launch_adam(void* p, void* m, void* v, const void* cot, const void* ids,
-                 const void* cptr, int V, int D, int block, int ch, int nc,
-                 const AdamHyper& h, void* stream) {
-  const int nb = (V + block - 1) / block;
-  const size_t smem = static_cast<size_t>(block) * D * sizeof(float);
-  const uintptr_t align = reinterpret_cast<uintptr_t>(p) |
-                          reinterpret_cast<uintptr_t>(m) |
-                          reinterpret_cast<uintptr_t>(v);
-  const int vec = D % 4 == 0 && (align & 15) == 0;
+int launch_adam(const uint64_t* ptrs, const int* ints, int count, int D, int ch,
+                const AdamHyper& h, cudaStream_t s) {
+  if (count < 1 || count > kPassTables) return cudaErrorInvalidValue;
+  AdamPass a = {};
+  a.count = count;
+  long long blocks = 0;
+  size_t smem = 16;
+  for (int t = 0; t < count; ++t) {
+    const uint64_t* q = ptrs + 6 * t;
+    const int V = ints[3 * t], block = ints[3 * t + 1], nc = ints[3 * t + 2];
+    if (bad_args(V, D, block, ch, nc)) return cudaErrorInvalidValue;
+    AdamTable& tb = a.t[t];
+    tb.p = reinterpret_cast<void*>(q[0]);
+    tb.m = reinterpret_cast<float*>(q[1]);
+    tb.v = reinterpret_cast<float*>(q[2]);
+    tb.cot = reinterpret_cast<const void*>(q[3]);
+    tb.ids = reinterpret_cast<const int*>(q[4]);
+    tb.cptr = reinterpret_cast<const int*>(q[5]);
+    tb.V = V, tb.block = block, tb.nc = nc;
+    tb.parts = static_cast<int>((static_cast<long long>(block) * D + kAdamValues - 1) /
+                                kAdamValues);
+    tb.part_rows = (block + tb.parts - 1) / tb.parts;
+    tb.first = static_cast<int>(blocks);
+    tb.vec = D % 4 == 0 && q[0] % (4 * sizeof(P)) == 0 && q[1] % 16 == 0 && q[2] % 16 == 0;
+    blocks += static_cast<long long>((V + block - 1) / block) * tb.parts;
+    const size_t tile = static_cast<size_t>(tb.part_rows) * D * sizeof(float);
+    smem = tile > smem ? tile : smem;
+  }
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   allow_smem(adam_kernel<P, C>, smem);
-  adam_kernel<P, C><<<nb, kThreads, smem, as_stream(stream)>>>(
-      static_cast<P*>(p), static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const C*>(cot), static_cast<const int*>(ids),
-      static_cast<const int*>(cptr), V, D, block, ch, nc, h, vec);
+  adam_kernel<P, C><<<static_cast<unsigned>(blocks), kAdamThreads, smem, s>>>(a, D, ch, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_adam_types(const uint64_t* ptrs, const int* ints, int count, int D, int ch,
+                      int p_bf16, int cot_bf16, const AdamHyper& h, void* stream) {
+  cudaStream_t s = as_stream(stream);
+  if (p_bf16 && cot_bf16)
+    return launch_adam<__nv_bfloat16, __nv_bfloat16>(ptrs, ints, count, D, ch, h, s);
+  if (p_bf16) return launch_adam<__nv_bfloat16, float>(ptrs, ints, count, D, ch, h, s);
+  if (cot_bf16) return launch_adam<float, __nv_bfloat16>(ptrs, ints, count, D, ch, h, s);
+  return launch_adam<float, float>(ptrs, ints, count, D, ch, h, s);
 }
 
 template <typename P, typename C, int L>
@@ -360,28 +458,20 @@ void launch_adagrad(void* p, void* acc, const void* cot, const void* ids,
 
 }  // namespace
 
-// p (V, D) f32 or bf16 (p_bf16), m and v (V, D) f32, updated in place;
-// cot (nc*ch, D) f32 or bf16 (cot_bf16); ids (nc, ch) and cptr (nb+1) int32
-// with nb = ceil(V / block).  omb1 = 1 - b1, omb2 = 1 - b2; c1 and c2 are
-// the bias corrections.  Launches on `stream`, returns cudaGetLastError().
-extern "C" int embedding_adam_launch(void* p, void* m, void* v, const void* cot,
-                                     const void* ids, const void* cptr, int V,
-                                     int D, int block, int ch, int nc,
-                                     int p_bf16, int cot_bf16, float lr,
-                                     float b1, float b2, float omb1, float omb2,
-                                     float c1, float c2, float eps, float wd,
-                                     void* stream) {
-  if (bad_args(V, D, block, ch, nc)) return cudaErrorInvalidValue;
+// Adam over `count` tables (1 <= count <= 32) of one D, one ch and one
+// pair of types, in one launch.  Table t: p (V, D) f32 or bf16 (p_bf16), m
+// and v (V, D) f32, updated in place; cot (nc*ch, D) f32 or bf16
+// (cot_bf16); ids (nc, ch) and cptr (nb+1) int32 with nb = ceil(V / block).
+// ptrs (6 * count) holds each table's p, m, v, cot, ids and cptr, ints (3 *
+// count) its V, block and nc.  omb1 = 1 - b1, omb2 = 1 - b2; c1 and c2 are
+// the bias corrections.  Launches on `stream`, returns cudaGetLastError()
+// (cudaErrorInvalidValue for a count or shape out of range).
+extern "C" int embedding_adam_launch(const uint64_t* ptrs, const int* ints, int count,
+                                     int D, int ch, int p_bf16, int cot_bf16, float lr,
+                                     float b1, float b2, float omb1, float omb2, float c1,
+                                     float c2, float eps, float wd, void* stream) {
   const AdamHyper h = {lr, b1, b2, omb1, omb2, c1, c2, eps, wd};
-  if (p_bf16 && cot_bf16)
-    launch_adam<__nv_bfloat16, __nv_bfloat16>(p, m, v, cot, ids, cptr, V, D, block, ch, nc, h, stream);
-  else if (p_bf16)
-    launch_adam<__nv_bfloat16, float>(p, m, v, cot, ids, cptr, V, D, block, ch, nc, h, stream);
-  else if (cot_bf16)
-    launch_adam<float, __nv_bfloat16>(p, m, v, cot, ids, cptr, V, D, block, ch, nc, h, stream);
-  else
-    launch_adam<float, float>(p, m, v, cot, ids, cptr, V, D, block, ch, nc, h, stream);
-  return static_cast<int>(cudaGetLastError());
+  return launch_adam_types(ptrs, ints, count, D, ch, p_bf16, cot_bf16, h, stream);
 }
 
 // p as above, acc (V) f32, updated in place; the other inputs as above.

@@ -364,24 +364,68 @@ def fused_embedding_adam(p, m, v, cot_sorted, ids2d, cptr, step: int, *,
     """Fused table backward + dense Adam on the logical table ``p`` (V, D)
     f32 or bf16 and its f32 moments, IN PLACE; see
     ``kernels/embedding_update.py`` for the inputs and the math.  ``step``
-    is 1-based; the bias corrections are computed here in f32."""
-    _check_embedding("fused_embedding_adam", p, [(m, tuple(p.shape)), (v, tuple(p.shape))],
-                     cot_sorted, ids2d, cptr, block)
-    if p.device.type == "cpu":
-        return emb_ref.fused_adam(p, m, v, cot_sorted, ids2d, cptr, step, block=block,
-                                  lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, mm_bf16=mm_bf16)
-    if p.device.type != "cuda":
-        raise ValueError(f"fused_embedding_adam: no kernel for device {p.device}")
-    _check_cuda("fused_embedding_adam", [p, m, v, cot_sorted, ids2d, cptr], p.device)
+    is 1-based; the bias corrections are computed here in f32.  The pass
+    of one table (``fused_embedding_adam_pass``): one launch."""
+    return fused_embedding_adam_pass([p], [m], [v], [cot_sorted], [ids2d], [cptr], step,
+                                     blocks=[block], lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
+                                     mm_bf16=mm_bf16)
+
+
+EMBEDDING_ADAM_TABLES = 32  # tables a launch of fused Adam takes (csrc/embedding_update.cu)
+
+
+def fused_embedding_adam_pass(ps, ms, vs, cots, ids2ds, cptrs, step: int, *, blocks,
+                              lr: float, b1: float = 0.9, b2: float = 0.999,
+                              eps: float = 1e-8, wd: float = 0.0,
+                              mm_bf16: bool = True) -> None:
+    """``fused_embedding_adam`` over a list of tables in place, table t with
+    its own (p, m, v, cot, ids2d, cptr) and block ``blocks[t]``.  On the
+    card one launch takes up to ``EMBEDDING_ADAM_TABLES`` tables of one D,
+    one chunk length and one pair of types (a step's group tables); a table
+    of no rows is skipped.  On the CPU the plain step runs table by table."""
+    tables = list(zip(ps, ms, vs, cots, ids2ds, cptrs, blocks, strict=True))
+    for p, m, v, cot, ids2d, cptr, block in tables:
+        _check_embedding("fused_embedding_adam", p, [(m, tuple(p.shape)), (v, tuple(p.shape))],
+                         cot, ids2d, cptr, block)
+    if not tables:
+        return None
+    device = tables[0][0].device
+    if device.type == "cpu":
+        for p, m, v, cot, ids2d, cptr, block in tables:
+            emb_ref.fused_adam(p, m, v, cot, ids2d, cptr, step, block=block, lr=lr, b1=b1,
+                               b2=b2, eps=eps, wd=wd, mm_bf16=mm_bf16)
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"fused_embedding_adam: no kernel for device {device}")
+    for tab in tables:
+        _check_cuda("fused_embedding_adam", tab[:6], device)
+    tables = [tab for tab in tables if tab[0].shape[0]]
+    if mm_bf16:  # the cotangent rounded to bf16, as the TPU kernel's wrapper does
+        tables = [(*tab[:3], tab[3].bfloat16(), *tab[4:]) for tab in tables]
+    kinds = {(p.shape[1], ids2d.shape[1], p.dtype, cot.dtype)
+             for p, _, _, cot, ids2d, _, _ in tables}
+    if len(kinds) > 1:
+        raise ValueError(f"fused_embedding_adam: one launch takes one D, chunk length and "
+                         f"pair of types, got {sorted(map(str, kinds))}")
     c1, c2 = emb_ref.adam_corrections(step, b1, b2)
-    cot, ptrs, ints = _embedding_args(p, cot_sorted, ids2d, block, mm_bf16)
     lib = build.libraries()["embedding_update"]
-    with torch.cuda.device(p.device):
-        rc = lib.embedding_adam_launch(
-            p.data_ptr(), m.data_ptr(), v.data_ptr(), *ptrs, cptr.data_ptr(), *ints,
-            lr, b1, b2, 1.0 - b1, 1.0 - b2, c1, c2, eps, wd, _stream(p))
-    build.check(rc, "fused_embedding_adam")
-    LAUNCHES["embedding_adam"] += 1
+    for at in range(0, len(tables), EMBEDDING_ADAM_TABLES):
+        part = tables[at:at + EMBEDDING_ADAM_TABLES]
+        ptrs = (ctypes.c_uint64 * (6 * len(part)))(
+            *(t.data_ptr() for tab in part for t in tab[:6]))
+        ints = (ctypes.c_int * (3 * len(part)))(
+            *(x for p, _, _, _, ids2d, _, block in part
+              for x in (p.shape[0], block, ids2d.shape[0])))
+        p0, cot0, ids0 = part[0][0], part[0][3], part[0][4]
+        with torch.cuda.device(device):
+            rc = lib.embedding_adam_launch(
+                ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+                len(part), p0.shape[1], ids0.shape[1], int(p0.dtype == torch.bfloat16),
+                int(cot0.dtype == torch.bfloat16), lr, b1, b2, 1.0 - b1, 1.0 - b2, c1, c2,
+                eps, wd, _stream(p0))
+        build.check(rc, "fused_embedding_adam")
+        LAUNCHES["embedding_adam"] += 1
+    return None
 
 
 def fused_embedding_rowwise_adagrad(p, acc, cot_sorted, ids2d, cptr, *, block: int,
@@ -554,13 +598,16 @@ def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
     (Q, N) score matrix: q (Q, D), items (N, D) -> (values (Q, k) f32,
     indices (Q, k) int32), best first, ties to the lower id; see
     ``kernels/topk.py``.  Takes 1 <= k <= 16 and N > k, as the TPU kernel's
-    callers route it."""
+    callers route it, and a D whose geometry fits shared memory
+    (``kernels/topk.py::in_domain``, the mirror of ``topk_scores_plan``)."""
     if q.dim() != 2 or items.dim() != 2 or q.shape[1] != items.shape[1]:
         raise ValueError(f"topk_scores_fused: expected q (Q, D) and items (N, D), got "
                          f"{tuple(q.shape)} and {tuple(items.shape)}")
-    if not topk_ref.in_domain(k, items.shape[0]):
+    if not topk_ref.takes_k(k, items.shape[0]):
         raise ValueError(f"topk_scores_fused: the kernel takes 1 <= k <= {topk_ref.MAX_K} "
                          f"and more than k items, got k={k}, N={items.shape[0]}")
+    if not topk_ref.fits_d(k, q.shape[1]):
+        raise ValueError(f"topk_scores_fused: the kernel does not take D={q.shape[1]}")
     if q.device.type == "cpu":
         return topk_ref.topk_scores(q, items, k)
     if q.device.type != "cuda":
@@ -848,8 +895,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (nonzero = attend) or None, the counterpart of the JAX package's
     ``kernels/dispatch.py::sdpa``.  A CUDA tensor takes the flash kernels at
     every length: the JAX package's switch to its materialised softmax below
-    Sq·Sk = 512² was measured on a TPU (ROADMAP Queue 3).  The semantics
-    are the flash kernel's: a query row with no key to attend gives 0."""
+    Sq·Sk = 512² was measured on a TPU (ROADMAP Queue 3).  The kernels take
+    the head dims of ``kernels/attention.py::flash_in_domain``;
+    ``ops/attention.py::attention`` routes the others.  The semantics are
+    the flash kernel's: a query row with no key to attend gives 0."""
     return FlashAttention.apply(q, k, v, mask, causal)
 
 

@@ -20,6 +20,26 @@ def num_pairs(f: int, self_interaction: bool) -> int:
     return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
 
 
+# csrc/dot_interaction.cu's shared-memory budget (opt-in, a block's most)
+DOT_SMEM_BYTES = 227 * 1024
+
+
+def dot_example_bytes(f: int, d: int, self_interaction: bool) -> int:
+    """Shared memory one example takes in the dot-interaction kernel: its
+    rows padded to a multiple of 4, each row D padded to a multiple of 4 f32
+    values, an odd count of 16-byte chunks an example, then its P f32
+    outputs (``example_bytes`` in ``csrc/dot_interaction.cu``)."""
+    fp, d4 = -(-f // 4) * 4, -(-d // 4) * 4
+    return (4 * ((fp * d4 // 4) | 1) + num_pairs(f, self_interaction)) * 4
+
+
+def dot_in_domain(f: int, d: int, self_interaction: bool) -> bool:
+    """Whether the kernel takes (F, D): at least one pair, and one example
+    within shared memory; the mirror of ``dot_interaction_tile``."""
+    return (f >= 1 and d >= 1 and num_pairs(f, self_interaction) >= 1
+            and dot_example_bytes(f, d, self_interaction) <= DOT_SMEM_BYTES)
+
+
 def dot_interaction(x: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
     """(B, F, D) f32 or bf16 -> (B, P) f32: the lower triangle of each
     example's Gram matrix X·Xᵀ, accumulated in f32."""

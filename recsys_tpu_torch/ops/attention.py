@@ -6,8 +6,9 @@ Layouts follow the JAX package: activations (B, S, D), heads split to
 (B, H, S, D/H).  ``Linear.weight`` is the transpose of flax's
 ``Dense.kernel`` (``convert.sasrec_params_from_jax`` maps one to the
 other); LayerNorm uses flax's epsilon, 1e-6.  Attention goes through
-``kernels/dispatch.py::sdpa``: the flash kernels on a CUDA tensor, their
-plain versions on a CPU tensor.
+:func:`attention`: at a head dim the flash kernels take, ``dispatch.sdpa``
+(the kernels on a CUDA tensor, their plain versions on a CPU tensor); at
+any other, the materialised softmax, on every device.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recsys_tpu_torch.kernels import attention as attn_ref
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.ops.init import dense_init_
 
@@ -31,6 +33,18 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, H, S, D) -> (B, S, H*D)."""
     b, h, s, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None, causal: bool = False) -> torch.Tensor:
+    """Masked attention over (B, H, S, D), routed by the head dim alone:
+    ``dispatch.sdpa`` (flash) where the kernels take it, else
+    ``kernels/attention.py::materialised_attention``, the JAX package's XLA
+    route, with a row that has no key to attend set to 0 on both routes.
+    AutoInt's two heads over D = 8 (the JAX CLI's default) give head dim 4."""
+    if attn_ref.flash_in_domain(q.shape[-1]):
+        return dispatch.sdpa(q, k, v, mask, causal=causal)
+    return attn_ref.materialised_attention(q, k, v, mask, causal)
 
 
 class Dropout(nn.Module):
@@ -86,7 +100,7 @@ class MultiHeadAttention(nn.Module):
         v_in = k_in if v_in is None else v_in
         qh, kh, vh = (split_heads(w(t), self.num_heads)
                       for w, t in ((self.wq, q_in), (self.wk, k_in), (self.wv, v_in)))
-        out = merge_heads(dispatch.sdpa(qh, kh, vh, mask, causal=self.causal))
+        out = merge_heads(attention(qh, kh, vh, mask, causal=self.causal))
         if self.wo is not None:
             out = self.wo(out)
         if self.use_residual:

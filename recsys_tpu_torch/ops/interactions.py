@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.ops.init import dense_init_
 
 
@@ -86,12 +87,19 @@ class LinearLogit(nn.Module):
 
 
 class DotInteraction(nn.Module):
-    """DLRM's pairwise dot interaction, (B, F, D) -> (B, P) f32, through
-    ``dispatch.DotInteraction`` (the kernel on a CUDA tensor)."""
+    """DLRM's pairwise dot interaction, (B, F, D) -> (B, P) f32.  Routed by
+    (F, D) alone: where the kernel takes them (``dot_in_domain``), through
+    ``dispatch.DotInteraction`` (the kernel on a CUDA tensor); elsewhere
+    through the JAX package's XLA route, a batched f32 Gram matrix and the
+    ``tril_pairs`` selection, whose gradient autograd takes, on every
+    device."""
 
     def __init__(self, self_interaction: bool = False):
         super().__init__()
         self.self_interaction = self_interaction
 
     def forward(self, vectors: torch.Tensor) -> torch.Tensor:
-        return dispatch.DotInteraction.apply(vectors.contiguous(), self.self_interaction)
+        _, f, d = vectors.shape
+        if int_ref.dot_in_domain(f, d, self.self_interaction):
+            return dispatch.DotInteraction.apply(vectors.contiguous(), self.self_interaction)
+        return int_ref.dot_interaction(vectors, self.self_interaction)

@@ -2,8 +2,9 @@
 ``recsys_tpu/train/retrieval.py``): score every catalog item against every
 query on the device and keep the k best.
 
-Routing follows the JAX package's, by k: where its fused kernel applies
-(k <= 16 and more than k items) both functions call
+Routing follows the JAX package's, by k, and the kernel's shared memory,
+by D: where the fused kernel applies (k <= 16, more than k items and a
+width that fits, ``kernels/topk.py::in_domain``) both functions call
 ``dispatch.topk_scores_fused``, which launches the top-k kernel on a CUDA
 tensor (its plain version on a CPU tensor) and never materialises the
 (Q, N) scores.  Outside that domain they compute what the JAX package's
@@ -37,7 +38,7 @@ def topk_scores(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,
     first."""
     if normalize:
         query_embs, item_embs = _l2(query_embs), _l2(item_embs)
-    if topk_ref.in_domain(k, item_embs.shape[0]):
+    if topk_ref.in_domain(k, *item_embs.shape):
         return dispatch.topk_scores_fused(query_embs, item_embs, k)
     return _best(query_embs.float() @ item_embs.float().T, k)
 
@@ -53,7 +54,7 @@ def topk_scores_streaming(query_embs: torch.Tensor, item_embs: torch.Tensor, k: 
     """Memory-bounded top-k: at most O(Q·(tile + k)) scores at a time."""
     if normalize:
         query_embs, item_embs = _l2(query_embs), _l2(item_embs)
-    if topk_ref.in_domain(k, item_embs.shape[0]):
+    if topk_ref.in_domain(k, *item_embs.shape):
         return dispatch.topk_scores_fused(query_embs, item_embs, k)
     q = query_embs.float()
     best_v = torch.full((q.shape[0], k), float("-inf"), device=q.device)

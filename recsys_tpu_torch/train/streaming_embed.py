@@ -109,24 +109,29 @@ def apply_updates_fused(tables: dict, state: dict, plan: EmbedPlan, batch: dict,
     under 64 KB to an XLA scatter-add instead (``TINY_TABLE_BYTES``), only
     because a mix of tiny and wide Pallas calls crashed the TPU worker;
     that fault has no counterpart on this card, and the math is the plain
-    version's either way.
+    version's either way.  Adam makes every group's cotangent first and
+    then updates all the groups in one launch
+    (``dispatch.fused_embedding_adam_pass``).
     """
     if kind not in ("adam", "rowwise_adagrad"):
         raise ValueError(f"unknown fused kind {kind!r}")
     flat = pert_grad.reshape(-1, plan.embed_dim)
     with torch.no_grad():
+        groups = []  # (table, state, cotangent, ids2d, cptr, block) a group
         for g, name in enumerate(plan.table_names):
             cot = flat.index_select(0, batch[f"embaux{g}_src"])
             if mm_bf16:
                 cot = cot.bfloat16()
-            ids2d, cptr = batch[f"embaux{g}_ids"], batch[f"embaux{g}_ptr"]
-            t, st = tables[name], state[name]
-            blk = min(block, t.shape[0])
-            if kind == "adam":
-                dispatch.fused_embedding_adam(t, st["m"], st["v"], cot, ids2d, cptr, step,
-                                              block=blk, lr=lr, wd=weight_decay,
-                                              mm_bf16=mm_bf16)
-            else:
-                dispatch.fused_embedding_rowwise_adagrad(t, st["acc"], cot, ids2d, cptr,
-                                                         block=blk, lr=lr, wd=weight_decay,
-                                                         mm_bf16=mm_bf16)
+            t = tables[name]
+            groups.append((t, state[name], cot, batch[f"embaux{g}_ids"],
+                           batch[f"embaux{g}_ptr"], min(block, t.shape[0])))
+        if kind == "adam":  # every group's cotangent first, then one launch
+            t, st, cot, ids2d, cptr, blk = zip(*groups)
+            dispatch.fused_embedding_adam_pass(
+                t, [s["m"] for s in st], [s["v"] for s in st], cot, ids2d, cptr, step,
+                blocks=blk, lr=lr, wd=weight_decay, mm_bf16=mm_bf16)
+            return
+        for t, st, cot, ids2d, cptr, blk in groups:
+            dispatch.fused_embedding_rowwise_adagrad(t, st["acc"], cot, ids2d, cptr,
+                                                     block=blk, lr=lr, wd=weight_decay,
+                                                     mm_bf16=mm_bf16)

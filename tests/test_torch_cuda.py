@@ -10,6 +10,7 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -23,18 +24,22 @@ import retrieval_check
 from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.kernels import attention as attn
-from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.kernels import build, dispatch
 from recsys_tpu_torch.kernels import embedding_update as emb_ref
+from recsys_tpu_torch.kernels import interactions as int_ref
 from recsys_tpu_torch.kernels import mlp as mlp_ref
+from recsys_tpu_torch.kernels import topk as topk_ref
 from recsys_tpu_torch.kernels.interactions import dot_interaction
 from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.ops.attention import MultiHeadAttention
+from recsys_tpu_torch.ops.interactions import DotInteraction
 from recsys_tpu_torch.tools.protocol import CTR_MODELS, ctr_model_kwargs
 from recsys_tpu_torch.train.losses import in_batch_sampled_softmax, pairwise_bce
 from recsys_tpu_torch.train.loop import Trainer
-from recsys_tpu_torch.train.retrieval import topk_scores
+from recsys_tpu_torch.train.retrieval import topk_scores, topk_scores_streaming
 from recsys_tpu_torch.train.streaming_embed import host_prep_group
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +76,144 @@ def test_dot_interaction_kernel_matches_plain(cuda, dtype, self_interaction, b, 
     # both sum d exact products in f32, in another order
     torch.testing.assert_close(got, dot_interaction(x, self_interaction),
                                rtol=1e-4, atol=1e-4)
+
+
+def _widest_f(d):
+    return max(f for f in range(2, 400) if int_ref.dot_in_domain(f, d, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("self_interaction", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 16, 36, 128])
+@pytest.mark.parametrize("f", [1, 2, 26, 27, 64, "widest"])
+def test_dot_interaction_kernel_at_every_block_layout(cuda, dtype, self_interaction, d, f):
+    # the 4 x 4 blocks of the Gram matrix at every edge: F not a multiple
+    # of 4, D not whole float4s, the widest F the kernel takes at this D;
+    # a ragged last tile of examples
+    f = _widest_f(d) if f == "widest" else f
+    if f == 1 and not self_interaction:
+        with pytest.raises(ValueError, match="does not take"):
+            dispatch.dot_interaction(torch.zeros(3, 1, d, device=cuda, dtype=dtype))
+        return
+    b = 9 if f > 64 else 1001
+    x = torch.from_numpy(np.random.default_rng(f * d).normal(
+        size=(b, f, d)).astype(np.float32) * 0.5).to(cuda, dtype)
+    before = dispatch.LAUNCHES["dot_interaction"]
+    got = dispatch.dot_interaction(x, self_interaction)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["dot_interaction"] == before + 1
+    # both sum d exact products in f32, in another order
+    torch.testing.assert_close(got, dot_interaction(x, self_interaction), rtol=1e-4, atol=1e-4)
+
+
+def test_dot_interaction_kernel_on_an_unaligned_input(cuda):
+    storage = torch.randn(1000 * 27 * 16 + 1, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = storage.to(dtype)[1:].view(1000, 27, 16)  # 4 (2) bytes into its storage
+        torch.testing.assert_close(dispatch.dot_interaction(x), dot_interaction(x),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_dot_in_domain_mirrors_the_kernel(cuda):
+    lib = build.libraries()["dot_interaction"]
+    for si in (False, True):
+        for d in (1, 2, 3, 4, 7, 8, 16, 36, 128, 129, 256, 800, 1000, 4096, 20000):
+            for f in range(0, 400):
+                assert int_ref.dot_in_domain(f, d, si) == (
+                    lib.dot_interaction_tile(f, d, int(si)) >= 1), (f, d, si)
+
+
+def test_flash_in_domain_mirrors_the_kernels(cuda):
+    libs = build.libraries()
+    for d in range(0, 200):
+        takes = (libs["flash_attention_fwd"].flash_attention_fwd_smem_bytes(d) != 0
+                 and libs["flash_attention_bwd"].flash_attention_bwd_smem_bytes(d) != 0)
+        assert attn.flash_in_domain(d) == takes, d
+
+
+def test_topk_in_domain_mirrors_the_kernels_plan(cuda):
+    lib = build.libraries()["topk_scores"]
+    plan = (ctypes.c_int * 5)()
+    for k in (1, 2, 10, 16, 17):
+        for n in (k, k + 1, 20_000):
+            for d in (*range(1, 1200, 37), 904, 905, 908, 909, 912, 913):
+                got = lib.topk_scores_plan(64, n, -(-d // 4), k,
+                                           ctypes.cast(plan, ctypes.c_void_p))
+                assert topk_ref.in_domain(k, n, d) == bool(got), (k, n, d)
+
+
+def test_f4_dot_route_on_card_matches_cpu(cuda):
+    # past the kernel's shared memory: the route, forward and gradient
+    x = torch.from_numpy(np.random.default_rng(40).normal(
+        size=(16, 80, 800)).astype(np.float32) * 0.3)
+    g = torch.randn(16, 80 * 79 // 2)
+    res = {}
+    for dev in ("cpu", cuda):
+        xi = x.detach().to(dev).requires_grad_()
+        dispatch.reset_launches()
+        out = DotInteraction()(xi)
+        (out * g.to(dev)).sum().backward()
+        res[str(dev)] = (out.detach().cpu(), xi.grad.cpu())
+    assert not any(dispatch.LAUNCHES.values())
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    dispatch.reset_launches()
+    DotInteraction()(x[:, :27, :16].contiguous().to(cuda))  # in the domain: the kernel
+    assert dispatch.LAUNCHES["dot_interaction"] == 1
+
+
+def test_f4_attention_route_on_card_matches_cpu(cuda):
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(24, 2, causal=True)  # head width 12
+    rng = np.random.default_rng(41)
+    mask = torch.from_numpy(rng.random((8, 20)) > 0.3)
+    mask[0] = False
+    x = torch.from_numpy(rng.normal(size=(8, 20, 24)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(mha).to(dev)
+        xi = x.detach().to(dev).requires_grad_()
+        dispatch.reset_launches()
+        out = m(xi, mask=mask.to(dev))
+        out.square().sum().backward()
+        res[str(dev)] = [t.cpu() for t in (out.detach(), xi.grad, m.wq.weight.grad)]
+    assert not any(dispatch.LAUNCHES.values())
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_f4_autoint_train_step_at_d8_on_card_matches_cpu(cuda):
+    schema, data = synthetic_ctr(num_examples=512, num_dense=13, num_sparse=26,
+                                 vocab_size=5000, embed_dim=8, seed=42)
+    torch.manual_seed(0)
+    model = CTR_MODELS["autoint"](schema)  # two heads of width 4: the route
+    cpu = Trainer(copy.deepcopy(model), device="cpu")
+    card = Trainer(model)
+    dispatch.reset_launches()
+    loss = card.train_step(data)
+    torch.cuda.synchronize()
+    assert not any(dispatch.LAUNCHES.values())
+    want = cpu.train_step(data)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)
+    got_sd, want_sd = card.model.state_dict(), cpu.model.state_dict()
+    for key, w in want_sd.items():
+        # a first Adam step moves a cell by about lr·sign(g): a g within the
+        # sum order's noise of zero may move the other way
+        assert ((got_sd[key].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, key
+
+
+def test_f4_topk_route_at_d1024_on_card_matches_cpu(cuda):
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(43), 256, 3000, 1024,
+                                                cuda)
+    for fn in (topk_scores, topk_scores_streaming):
+        dispatch.reset_launches()
+        res = retrieval_check.check_topk(q, items, 10, fn, dup)
+        torch.cuda.synchronize()
+        assert not any(dispatch.LAUNCHES.values())
+        assert res["ok"], res
+        v_cpu, _ = fn(q.cpu(), items.cpu(), 10)
+        v, _ = fn(q, items, 10)
+        assert ((v.cpu() - v_cpu).abs() <= retrieval_check.score_limit(q, items).cpu()).all()
 
 
 @pytest.mark.parametrize("mm_bf16", [False, True])
@@ -347,6 +490,110 @@ def test_embedding_adam_kernel_hot_ids_first_step(cuda):
     assert ((state[0] - plain[0]).abs() > 1e-5).float().mean() < 1e-3
 
 
+def _adam_matches_plain(cuda, v, d, n, block, *, p_dtype=torch.float32, mm_bf16=True,
+                        wd=0.0, ids=None, offset=0, cot_scale=1e-2):
+    """One fused Adam launch against the plain step from the same state;
+    the table a view ``offset`` elements into its storage."""
+    cot, ids2d, cptr, p, m, vv, to = _embedding_case(cuda, v, d, n, block, seed=d, ids=ids,
+                                                     cot_scale=cot_scale)
+    storage = torch.zeros(v * d + offset, dtype=p_dtype, device=cuda)
+    table = storage[offset:].view(v, d)
+    table.copy_(to(p))
+    state = [table, to(m), to(vv)]
+    plain = [t.clone() for t in state]
+    before = dispatch.LAUNCHES["embedding_adam"]
+    dispatch.fused_embedding_adam(*state, cot, ids2d, cptr, 3, block=block, lr=1e-3, wd=wd,
+                                  mm_bf16=mm_bf16)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["embedding_adam"] == before + 1
+    emb_ref.fused_adam(*plain, cot, ids2d, cptr, 3, block=block, lr=1e-3, wd=wd,
+                       mm_bf16=mm_bf16)
+    # as test_embedding_adam_kernel_matches_plain
+    for name, got, want in zip("pmv", state, plain):
+        tol = dict(rtol=8e-3, atol=1e-6) if got.dtype == torch.bfloat16 else \
+            dict(rtol=2e-4, atol=1e-7)
+        torch.testing.assert_close(got.float(), want.float(), **tol, msg=name)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 32, 64])
+def test_embedding_adam_kernel_at_every_row_width(cuda, p_dtype, mm_bf16, wd, d):
+    # 1000 rows in blocks of 96 (each block's parts a few rows at D = 64):
+    # a ragged last block of 40 rows, and no id in block 3 (rows 288-383),
+    # whose rows still decay with g = 0
+    ids = np.random.default_rng(d).integers(0, 1000 - 96, 700)
+    ids = np.where(ids >= 288, ids + 96, ids).astype(np.int32)
+    _adam_matches_plain(cuda, 1000, d, 700, 96, p_dtype=p_dtype, mm_bf16=mm_bf16, wd=wd,
+                        ids=ids)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_embedding_adam_kernel_across_the_parts_of_a_block(cuda, d):
+    # blocks of 512 rows cut into parts of 2048 values: ids at every part's
+    # edges, duplicated, and a ragged last block (100,000 = 195 * 512 + 160)
+    rows = np.arange(0, 100_000, 2048 // d)
+    ids = np.concatenate([rows, rows - 1, rows[:500], np.full(300, 99_999)])
+    ids = np.clip(ids, 0, 99_999).astype(np.int32)
+    _adam_matches_plain(cuda, 100_000, d, ids.size, 512, ids=ids)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_embedding_adam_kernel_on_4096_duplicates(cuda, p_dtype):
+    _adam_matches_plain(cuda, 300, 16, 4096, 8, p_dtype=p_dtype,
+                        ids=np.full(4096, 37, np.int32))
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_embedding_adam_kernel_on_a_table_4_bytes_off(cuda, p_dtype, d):
+    # not aligned to 4 elements: single values
+    _adam_matches_plain(cuda, 1000, d, 700, 96, p_dtype=p_dtype, wd=0.01,
+                        offset=1 if p_dtype == torch.float32 else 2)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_embedding_adam_pass_of_unequal_tables_is_one_launch(cuda, p_dtype):
+    # a bench-size table, a small one with a ragged last block, one of 37
+    # rows in blocks of 16, one no id touches, one of no rows; and 45
+    # tables, 36 of them with rows: two launches
+    cases = [(100_000, 16384, 512), (1000, 700, 96), (37, 300, 16), (5000, 500, 512)]
+    tabs = []
+    for i, (v, n, block) in enumerate(cases):
+        cot, ids2d, cptr, p, m, vv, to = _embedding_case(cuda, v, 16, n, block, seed=50 + i)
+        if i == 3:
+            ids2d.fill_(emb_ref.num_blocks(v, block) * block)  # every slot the sentinel
+            cptr.zero_()
+        tabs.append([to(p).to(p_dtype), to(m), to(vv), cot, ids2d, cptr, block])
+    t = tabs[2]
+    tabs.append([t[0][:0], t[1][:0], t[2][:0], t[3], t[4], t[5][:1].clone(), 16])
+    for count, launches in ((len(tabs), 1), (45, 2)):
+        tables = [tabs[i % len(tabs)] for i in range(count)]
+        state = [[tab[j].clone() for tab in tables] for j in range(3)]
+        plain = [[tab[j].clone() for tab in tables] for j in range(3)]
+        cols = [[tab[j] for tab in tables] for j in range(3, 6)]
+        blocks = [tab[6] for tab in tables]
+        dispatch.reset_launches()
+        dispatch.fused_embedding_adam_pass(*state, *cols, 3, blocks=blocks, lr=1e-3)
+        torch.cuda.synchronize()
+        assert dispatch.LAUNCHES["embedding_adam"] == launches
+        for i, block in enumerate(blocks):
+            emb_ref.fused_adam(*(w[i] for w in plain), *(c[i] for c in cols), 3, block=block,
+                               lr=1e-3)
+            for name, got, want in zip("pmv", state, plain):
+                tol = dict(rtol=8e-3, atol=1e-6) if got[i].dtype == torch.bfloat16 else \
+                    dict(rtol=2e-4, atol=1e-7)
+                torch.testing.assert_close(got[i].float(), want[i].float(), **tol,
+                                           msg=f"{name} of table {i}")
+    with pytest.raises(ValueError, match="one D"):
+        wide = _embedding_case(cuda, 50, 8, 40, 16)
+        dispatch.fused_embedding_adam_pass(
+            [tabs[1][0], wide[6](wide[3]).to(p_dtype)], [tabs[1][1], wide[6](wide[4])],
+            [tabs[1][2], wide[6](wide[5])], [tabs[1][3], wide[0]], [tabs[1][4], wide[1]],
+            [tabs[1][5], wide[2]], 3, blocks=[96, 16], lr=1e-3)
+
+
 @pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mm_bf16", [False, True])
 @pytest.mark.parametrize("v, d, n, block, wd", [(100_000, 16, 16384, 512, 0.0),
@@ -454,9 +701,11 @@ def test_train_step_on_card_matches_cpu(cuda, opt):
     dispatch.reset_launches()
     loss = card.train_step(batch)
     torch.cuda.synchronize()
-    kernel = "embedding_adam" if opt == "fused_adam" else "embedding_rowwise_adagrad"
+    # fused Adam updates the 26 tables in one launch, AdaGrad one a table
+    kernel = {"embedding_adam": 1} if opt == "fused_adam" else \
+        {"embedding_rowwise_adagrad": 26}
     assert dispatch.LAUNCHES == {**dict.fromkeys(dispatch.LAUNCHES, 0), "dot_interaction": 4,
-                                 "mlp_fwd": 8, "mlp_bwd": 8, kernel: 26}
+                                 "mlp_fwd": 8, "mlp_bwd": 8, **kernel}
     want = cpu.train_step(batch)
     # exact f32 on both sides: sums in another order
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)

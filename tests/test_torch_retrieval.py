@@ -127,7 +127,7 @@ def test_plain_topk_orders_exact_ties_by_the_lower_id():
 def test_topk_kernel_domain():
     q, items = torch.zeros(2, 4), torch.zeros(20, 4)
     for k, n in ((17, 20), (0, 20), (5, 5)):
-        assert not topk_ref.in_domain(k, n)
+        assert not topk_ref.in_domain(k, n, 4)
         with pytest.raises(ValueError, match="1 <= k <= 16"):
             dispatch.topk_scores_fused(q, items[:n], k)
 
