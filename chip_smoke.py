@@ -88,10 +88,16 @@ checkout.  Phases, one JSON line each:
 13. youtube check -- the pooled-gather and top-k kernels against their plain
                 versions (retrieval_check.py): the pooled gather at B = 1024
                 and 1000, L = 50, D = 32 and 128, f32 and bf16 tables,
-                uniform and Zipf ids, empty histories; the top-k at Q = 8192
-                and 3616 over the catalog, D = 32, k = 1, 10, 16, with
-                duplicated item rows, and at 1024 x 1,000,000 x 64, k = 10;
-                each limit shown to reject a wrong result.
+                uniform and Zipf ids, empty histories, then at L = 1, 31,
+                32, 33, 50, 64, 65, 200 by D = 4, 12, 32, 33, 128, 130, f32
+                (also unaligned) and bf16; the top-k at Q = 8192 and 3616
+                over the catalog, D = 32, k = 1, 10, 16, with duplicated item
+                rows, and at 1024 x 1,000,000 x 64, k = 10; then N = k + 1,
+                D = 4, 12, 64, 124 and 128 (the domain's edge) at 1000 x
+                5000, and the sweep shape, with rows duplicated across the
+                plan's tile and split boundaries; D = 129 through both
+                retrieval routes with no launch; each limit shown to reject
+                a wrong result (the top-k's also single-pass TF32 scores).
 14. youtube serve -- YoutubeDNN (D = 32, hidden 128-64, mean pooling),
                 weights made from the seed in the JAX layout and converted,
                 served as run_seqret serves it: user_embed over 8192-query
@@ -104,8 +110,11 @@ checkout.  Phases, one JSON line each:
                 against the plain step, step time, profile; then serve again:
                 recall@10 must beat random.
 16. youtube timing -- kernel, plain and library ms of the pooled gather and
-                the top-k with their bounds, at the serving block and the
-                sweep shape.
+                the top-k with their bounds and launch floors (an empty
+                kernel at the kernel's grid), at the serving block and the
+                sweep shape; the top-k's split-TF32 bound (3 TF32 products
+                an f32 product at 495 TFLOP/s) with the CUDA cores' beside
+                it, and its plan.
 17. ctr check -- the FM bi-interaction kernel against its plain version
                 (ctr_check.py): F = 1, 2, 26, 39, 70 fields, D = 1, 8, 16, 32,
                 36, B = 0, 1, 513, 4096, f32 and bf16, and large nearly
@@ -157,6 +166,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import functools
 import itertools
 import json
@@ -277,6 +287,12 @@ YOUTUBE_K = 10
 YOUTUBE_BATCH = 1024
 YOUTUBE_STEPS = 100      # from the head of the shuffled train set
 YOUTUBE_SWEEP = (1024, 1_000_000, 64)  # tools/kernel_sweep.py:98-102
+# the kernels' geometry checks: pooled-gather history lengths and widths;
+# top-k (queries, items or None for k + 1, width)
+POOL_GEOMETRY_L = (1, 31, 32, 33, 50, 64, 65, 200)
+POOL_GEOMETRY_D = (4, 12, 32, 33, 128, 130)
+TOPK_GEOMETRY = ((300, None, 32), (1000, 5000, 4), (1000, 5000, 12), (1000, 5000, 64),
+                 (1000, 5000, 124), (1000, 5000, 128))
 # The user vectors, kernels against plain versions: unit vectors from a
 # 50-term pooled mean (sums in another order) through three f32 layers.
 # One train step is held as SASRec's (all f32).  The kernels' own limits
@@ -1833,21 +1849,75 @@ def phase_youtube_check(rng, dev, num_items) -> dict:
         if d == YOUTUBE_DIM and dtype == torch.float32:
             worst["pooled_gather"] = max(worst["pooled_gather"], res["max_abs_err"])
         del table, rows, mask
-    cases = [(nq, num_items, YOUTUBE_DIM, k, True) for nq in (YOUTUBE_BLOCK, 3616)
+    # the kernel's geometries: one pass of 64 positions and more, rows of 16
+    # to 520 bytes (two examples a warp up to 64 bytes, column blocks, the
+    # element-a-lane path at odd D), Zipf and uniform ids, an unaligned table
+    summary = {"cases": 0, "worst_share_of_limit": 0.0, "least_wrong_err": float("inf")}
+    for i, (length, d, dtype) in enumerate(itertools.product(
+            POOL_GEOMETRY_L, POOL_GEOMETRY_D, (torch.float32, torch.bfloat16))):
+        table, rows, mask = rc.pooled_inputs(rng, 333, length, num_items, d, dtype, i % 2 == 1,
+                                             dev)
+        for t in (table, rc.unaligned(table)) if dtype == torch.float32 else (table,):
+            res = rc.check_pooled(t, rows, mask, dispatch.pooled_gather)
+            ok = res["within"] and res["empty_rows_zero"] and (length == 1 or
+                                                               res["wrong_rejected"])
+            if not ok:
+                case = (f"pooled_gather b=333 L={length} d={d} {str(dtype)[6:]} "
+                        f"{'unaligned' if t is not table else 'aligned'}")
+                emit({"phase": "check", "case": case, **res, "ok": False})
+                raise AssertionError(f"{case}: kernel disagrees with its plain version, or "
+                                     f"the limit does not reject a wrong result: {res}")
+            summary["cases"] += 1
+            summary["worst_share_of_limit"] = max(summary["worst_share_of_limit"],
+                                                  res["worst_share_of_limit"])
+            if length > 1:
+                summary["least_wrong_err"] = min(summary["least_wrong_err"],
+                                                 res["wrong_last_id_left_out_max_abs_err"])
+        del table, rows, mask
+    emit({"phase": "check", "case": "pooled_gather geometries", "lengths": POOL_GEOMETRY_L,
+          "widths": POOL_GEOMETRY_D, **summary, "rtol_of_abs_sum": rc.POOL_RTOL,
+          "atol": rc.POOL_ATOL, "ok": True})
+    # (queries, items, width, k, unit vectors, duplicated rows at the plan's
+    # tile and split boundaries)
+    cases = [(nq, num_items, YOUTUBE_DIM, k, True, False) for nq in (YOUTUBE_BLOCK, 3616)
              for k in (1, YOUTUBE_K, 16)]
-    cases.append((*YOUTUBE_SWEEP, YOUTUBE_K, False))
-    for nq, n, d, k, unit in cases:
-        q, items, dup = rc.topk_inputs(rng, nq, n, d, dev, normalize=unit)
+    cases.append((*YOUTUBE_SWEEP, YOUTUBE_K, False, False))
+    # the geometry's edges: ragged query blocks and tiles, N = k + 1, the
+    # widths of one to sixteen k-steps up to the domain's edge (128)
+    cases += [(nq, n or k + 1, d, k, True, True) for nq, n, d in TOPK_GEOMETRY
+              for k in (1, YOUTUBE_K, 16)]
+    cases.append((*YOUTUBE_SWEEP, YOUTUBE_K, False, True))
+    for nq, n, d, k, unit, boundary in cases:
+        dup_at = None
+        if boundary:
+            plan = dispatch.topk_plan(nq, n, d, k)
+            dup_at = rc.boundary_ids(n, plan[1], plan[3])
+        q, items, dup = rc.topk_inputs(rng, nq, n, d, dev, normalize=unit, dup_at=dup_at)
         res = rc.check_topk(q, items, k, dispatch.topk_scores_fused, dup)
-        case = f"topk_scores q={nq} n={n} d={d} k={k} {'unit' if unit else 'normal'} vectors"
+        case = (f"topk_scores q={nq} n={n} d={d} k={k} {'unit' if unit else 'normal'} vectors"
+                f"{', ties across tile and split boundaries' if boundary else ''}")
         emit({"phase": "check", "case": case, **res, "score_rtol_of_norms": rc.SCORE_RTOL,
-              "duplicated_rows": dup})
+              "duplicated_rows": dup if len(dup) <= 8 else f"{len(dup)} ids"})
         if not res["ok"]:
             raise AssertionError(f"{case}: kernel disagrees with its plain version, or the "
                                  f"limits do not reject a wrong result: {res}")
         if k == YOUTUBE_K and unit:
             worst["topk_scores"] = max(worst["topk_scores"], res["max_abs_err"])
         del q, items
+    # past the domain's edge both retrieval functions take the score route
+    from recsys_tpu_torch.train.retrieval import topk_scores, topk_scores_streaming
+
+    q, items, dup = rc.topk_inputs(rng, 1000, 5000, 129, dev)
+    before = dispatch.LAUNCHES["topk_scores"]
+    for fn in (topk_scores, topk_scores_streaming):
+        res = rc.check_topk(q, items, YOUTUBE_K, fn, dup)
+        emit({"phase": "check", "case": f"topk {fn.__name__} d=129 (past the kernel's widths)",
+              **res, "ok": res["ok"]})
+        if not res["ok"]:
+            raise AssertionError(f"topk {fn.__name__} at D = 129 disagrees: {res}")
+    if dispatch.LAUNCHES["topk_scores"] != before:
+        raise AssertionError("topk at D = 129 launched the kernel")
+    del q, items
     torch.cuda.empty_cache()
     return worst
 
@@ -2076,14 +2146,14 @@ def phase_youtube_train(model, train, num_items, dev):
 
 
 def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
-    """Kernel, plain and library ms: the pooled gather on the first serving
-    block of test histories (D = 32, f32 table); the top-k at the serving
-    block (8192 unit queries over the catalog, D = 32) and at the sweep
-    shape (1024 x 1,000,000 x 64, normal vectors), k = 10."""
+    """Kernel, plain and library ms and launch floors: the pooled gather on
+    the first serving block of test histories (D = 32, f32 table); the top-k
+    at the serving block (8192 unit queries over the catalog, D = 32) and at
+    the sweep shape (1024 x 1,000,000 x 64, normal vectors), k = 10."""
     import torch
     import torch.nn.functional as F
 
-    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import build, dispatch
     from recsys_tpu_torch.kernels import embedding as emb_ref
     from recsys_tpu_torch.kernels import topk as topk_ref
 
@@ -2099,6 +2169,8 @@ def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
     # bool mask; the output once
     bound_ms, kind = bound(touched * YOUTUBE_DIM * 4 + b * length * 5 + b * YOUTUBE_DIM * 4,
                            float((rows_np != 0).sum()) * YOUTUBE_DIM, F32_FLOPS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pool_lib = build.libraries()["pooled_gather"]
     pooled = {"ms": cuda_ms(lambda: dispatch.pooled_gather(table, rows, mask), iters=200),
               "plain_ms": cuda_ms(lambda: emb_ref.pooled_gather(table, rows, mask)),
               "library_ms": cuda_ms(lambda: F.embedding_bag(rows, table, mode="sum",
@@ -2109,7 +2181,9 @@ def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
               "bound_ms_every_position_read": bound(
                   b * length * YOUTUBE_DIM * 4 + b * length * 8 + b * YOUTUBE_DIM * 4, 0,
                   F32_FLOPS)[0],
-              "library": "F.embedding_bag(mode='sum', per_sample_weights=mask)"}
+              "library": "F.embedding_bag(mode='sum', per_sample_weights=mask)",
+              "launch_floor_ms": cuda_ms(lambda: pool_lib.pooled_gather_floor(
+                  b, YOUTUBE_DIM, stream), 200, 10)}
     emit({"phase": "timing", "kernel": "pooled_gather", "dtype": "f32", **pooled})
 
     res = {"pooled_gather": pooled}
@@ -2120,11 +2194,21 @@ def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
         if unit:
             q, items = q / q.norm(dim=1, keepdim=True), items / items.norm(dim=1, keepdim=True)
         k = YOUTUBE_K
-        bound_ms, kind = bound((nq * d + n * d) * 4 + nq * k * 8, 2.0 * nq * n * d, F32_FLOPS)
+        # split TF32: 3 TF32 products an f32 product on the tensor cores; the
+        # CUDA cores' exact f32 beside it
+        nbytes, ops = (nq * d + n * d) * 4 + nq * k * 8, 2.0 * nq * n * d
+        bound_ms, kind = bound(nbytes, 3 * ops, TF32_FLOPS)
+        plan = dispatch.topk_plan(nq, n, d, k)
+        floor_ms = cuda_ms(lambda: build.libraries()["topk_scores"].topk_scores_floor(
+            nq, ctypes.cast(plan, ctypes.c_void_p), stream), 200, 10)
         t = {"ms": cuda_ms(lambda: dispatch.topk_scores_fused(q, items, k), 20, 3),
              "plain_ms": cuda_ms(lambda: topk_ref.topk_scores(q, items, k), 3, 1),
              "library_ms": cuda_ms(lambda: torch.topk(q @ items.T, k), 5, 2),
-             "bound_ms": bound_ms, "bound_by": kind, "shape": [nq, n, d], "k": k,
+             "bound_ms": bound_ms, "bound_by": kind,
+             "f32_core_bound_ms": bound(nbytes, ops, F32_FLOPS)[0], "launch_floor_ms": floor_ms,
+             "plan": {"tile_n": plan[1], "splits": plan[2], "per_split": plan[3],
+                      "smem_bytes": plan[4]},
+             "shape": [nq, n, d], "k": k,
              "library": "torch.topk(q @ items.T, k): two calls, the (Q, N) scores "
                         "materialised"}
         emit({"phase": "timing", "kernel": f"topk_scores {name}", "dtype": "f32", **t})
@@ -2764,7 +2848,7 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("unfused_ms", "launch_floor_ms") if k in t},
+            **{k: t[k] for k in ("unfused_ms", "launch_floor_ms", "f32_core_bound_ms") if k in t},
         })
     print(card["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

@@ -60,10 +60,12 @@ SIGNATURES = {
     },
     "pooled_gather": {
         "pooled_gather_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "pooled_gather_floor": (_I, [_I, _I, _P]),
     },
     "topk_scores": {
         "topk_scores_plan": (_I, [_I, _I, _I, _I, _P]),
         "topk_scores_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+        "topk_scores_floor": (_I, [_I, _P, _P]),
     },
     "adam_stream": {
         "adam_stream_launch": (_I, [_P, _P, _I, _F, _F, _F, _F, _F, _F, _P]),

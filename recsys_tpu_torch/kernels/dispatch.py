@@ -584,7 +584,7 @@ def pooled_gather(table: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor) -
 
 def _chunked(x: torch.Tensor) -> torch.Tensor:
     """x (R, D) f32 with D padded by zero columns to a multiple of 4 and its
-    storage 16-byte aligned, for the top-k kernel's 16-byte loads (zero
+    storage 16-byte aligned, for the top-k kernel's 16-byte copies (zero
     columns leave every dot product as it is)."""
     x = x.float().contiguous()
     pad = -x.shape[1] % 4
@@ -593,12 +593,22 @@ def _chunked(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def topk_plan(nq: int, n: int, d: int, k: int):
+    """``topk_scores_plan``'s launch plan on the current card (threads,
+    items a tile, catalog splits, items a split, shared bytes) as a ctypes
+    int array, or None where the kernel does not take the shape."""
+    plan = (ctypes.c_int * 5)()
+    ok = build.libraries()["topk_scores"].topk_scores_plan(
+        nq, n, -(-d // 4), k, ctypes.cast(plan, ctypes.c_void_p))
+    return plan if ok else None
+
+
 def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
-    """The k best items of each query by exact f32 dot product, without the
-    (Q, N) score matrix: q (Q, D), items (N, D) -> (values (Q, k) f32,
-    indices (Q, k) int32), best first, ties to the lower id; see
-    ``kernels/topk.py``.  Takes 1 <= k <= 16 and N > k, as the TPU kernel's
-    callers route it, and a D whose geometry fits shared memory
+    """The k best items of each query by f32 dot product (split TF32 on the
+    tensor cores), without the (Q, N) score matrix: q (Q, D), items (N, D)
+    -> (values (Q, k) f32, indices (Q, k) int32), best first, ties to the
+    lower id; see ``kernels/topk.py``.  Takes 1 <= k <= 16 and N > k, as
+    the TPU kernel's callers route it, and D <= 128
     (``kernels/topk.py::in_domain``, the mirror of ``topk_scores_plan``)."""
     if q.dim() != 2 or items.dim() != 2 or q.shape[1] != items.shape[1]:
         raise ValueError(f"topk_scores_fused: expected q (Q, D) and items (N, D), got "
@@ -620,18 +630,16 @@ def topk_scores_fused(q: torch.Tensor, items: torch.Tensor, k: int = 10):
     if nq == 0:
         return values, indices
     qc, ic = _chunked(q), _chunked(items)
-    d4 = qc.shape[1] // 4
-    lib = build.libraries()["topk_scores"]
-    plan = (ctypes.c_int * 5)()
     with torch.cuda.device(q.device):
-        if not lib.topk_scores_plan(nq, n, d4, k, ctypes.cast(plan, ctypes.c_void_p)):
+        plan = topk_plan(nq, n, q.shape[1], k)
+        if plan is None:
             raise ValueError(f"topk_scores_fused: the kernel does not take D={q.shape[1]}")
         splits = plan[2]
         parts = [torch.empty((nq, splits, k), dtype=dt, device=q.device)
                  for dt in (torch.float32, torch.int32)] if splits > 1 else [None, None]
-        rc = lib.topk_scores_launch(
+        rc = build.libraries()["topk_scores"].topk_scores_launch(
             qc.data_ptr(), ic.data_ptr(), values.data_ptr(), indices.data_ptr(),
-            *[None if t is None else t.data_ptr() for t in parts], nq, n, d4, k,
+            *[None if t is None else t.data_ptr() for t in parts], nq, n, qc.shape[1] // 4, k,
             ctypes.cast(plan, ctypes.c_void_p), _stream(q))
     build.check(rc, "topk_scores_fused")
     LAUNCHES["topk_scores"] += 1

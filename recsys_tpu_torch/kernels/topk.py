@@ -14,12 +14,9 @@ from __future__ import annotations
 
 import torch
 
-MAX_K = 16  # the kernel's domain: 1 <= k <= 16, N > k and D within shared memory
+MAX_K = 16  # the kernel's domain: 1 <= k <= 16, N > k and D <= MAX_D
+MAX_D = 128  # csrc/topk_scores.cu's kMaxD: a warp's query rows stay in registers
 _ID_MAX = 2**31 - 1  # the id of an empty slot, after every real item
-# csrc/topk_scores.cu's constants: the warps of a query group, its shared
-# memory limit
-_WARPS_N = 4
-_SMEM_LIMIT = 227 * 1024
 
 
 def takes_k(k: int, n: int) -> bool:
@@ -28,23 +25,11 @@ def takes_k(k: int, n: int) -> bool:
 
 
 def fits_d(k: int, d: int) -> bool:
-    """Whether some query-group geometry of ``topk_scores_plan``
-    (``csrc/topk_scores.cu``) fits shared memory at head width ``d``: the
-    plan's loop over 4, 2 and 1 warps of 32 queries, each staging its
-    queries (row stride odd in 16-byte chunks) and an item tile, or holding
-    the lists of its k rounded up to a power of two."""
-    d4 = -(-d // 4)
-    if d4 < 1 or not 1 <= k <= MAX_K:
-        return False
-    kp = 1 << (k - 1).bit_length()
-    tile_n = 128 if d4 <= 16 else (64 if d4 <= 32 else 32)
-    for wq in (4, 2, 1):
-        bq = 32 * wq
-        stage = (bq * (d4 | 1) + tile_n * d4) * 16
-        lists = bq * _WARPS_N * kp * 8
-        if max(stage, lists) <= _SMEM_LIMIT:
-            return True
-    return False
+    """Whether ``topk_scores_plan`` (``csrc/topk_scores.cu``) takes head
+    width ``d``: d padded to a multiple of 4 lies in [4, 128], so that a
+    warp's 16 query rows, split into big and small TF32 parts, fit its
+    registers (k in [1, 16] as well)."""
+    return 1 <= k <= MAX_K and 4 <= 4 * -(-d // 4) <= MAX_D
 
 
 def in_domain(k: int, n: int, d: int) -> bool:

@@ -2,9 +2,9 @@
 ``recsys_tpu/train/retrieval.py``): score every catalog item against every
 query on the device and keep the k best.
 
-Routing follows the JAX package's, by k, and the kernel's shared memory,
-by D: where the fused kernel applies (k <= 16, more than k items and a
-width that fits, ``kernels/topk.py::in_domain``) both functions call
+Routing follows the JAX package's, by k, and the kernel's registers, by
+D: where the fused kernel applies (k <= 16, more than k items and D <=
+128, ``kernels/topk.py::in_domain``) both functions call
 ``dispatch.topk_scores_fused``, which launches the top-k kernel on a CUDA
 tensor (its plain version on a CPU tensor) and never materialises the
 (Q, N) scores.  Outside that domain they compute what the JAX package's

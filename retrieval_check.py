@@ -9,18 +9,25 @@ terms' magnitudes: the limit is ``POOL_RTOL`` times that sum (plus
 wrong result, the sum with each example's last real position left out (what
 a kernel that drops the ragged end of its loop would give), must fail it.
 
-Top-k.  The kernel's scores are exact f32 dot products summed in d order,
-the plain version's a matrix product in its own order: a score may differ
-by D·2⁻²³ of ‖q‖·‖x‖ each way, so the limit on a score is
-``SCORE_RTOL``·‖q‖·max‖x‖ (``SCORE_RTOL`` above 2·64·2⁻²³).  Two items
-whose scores lie within that limit may swap places, so ranks are compared
+Top-k.  The kernel's scores are split-TF32 products on the tensor cores
+(each operand split into a TF32 big part and a small part, three products
+a k-step of 8 columns accumulated into the score), the plain version's an
+exact f32 matrix product in its own order: a score may differ by about
+2⁻²⁰ of ‖q‖·‖x‖ (the dropped small·small product, the small parts' lost
+low bits and the tensor cores' rounding toward zero) plus the f32
+roundings of either sum, so the limit on a score is
+``SCORE_RTOL``·‖q‖·max‖x‖.  Two items whose
+scores lie within that limit may swap places, so ranks are compared
 through scores: at every rank the plain score of the kernel's item must lie
 within the limit of the plain version's value there, the kernel's values
 within the limit of the plain ones, and each returned value within the
 limit of its item's score recomputed from the inputs in float64.  Exact
-ties (duplicated item rows) give bit-equal scores on both sides, so there
-the lower id must come first with no tolerance.  The wrong result, the
-plain top-k with its k-th entry swapped for the (k+1)-th, must fail.
+ties (duplicated item rows, placed where a tile or a catalog split ends)
+give bit-equal scores on both sides, so there the lower id must come first
+with no tolerance.  Two wrong results must fail: the plain top-k with its
+k-th entry swapped for the (k+1)-th, and the plain top-k scored in
+single-pass TF32 (each operand rounded to TF32 once), whose scores are
+about 2⁻¹¹ of ‖q‖·‖x‖ off.
 """
 from __future__ import annotations
 
@@ -49,6 +56,15 @@ def pooled_inputs(rng, b, length, v, d, dtype, skewed, device):
     rows[~mask] = 0
     return (table, torch.from_numpy(rows.astype(np.int32)).to(device),
             torch.from_numpy(mask).to(device))
+
+
+def unaligned(table):
+    """A copy of ``table`` whose storage starts one element past a 16-byte
+    boundary, for the kernels' element-a-lane path."""
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=table.device)
+    out = flat[1:].view(table.shape)
+    out.copy_(table)
+    return out
 
 
 def _pool_close(got, want, scale) -> bool:
@@ -81,17 +97,41 @@ def check_pooled(table, rows, mask, kernel) -> dict:
     return res
 
 
-def topk_inputs(rng, nq, n, d, device, normalize=True, duplicates=3):
+def topk_inputs(rng, nq, n, d, device, normalize=True, duplicates=3, dup_at=None):
     """Queries (nq, d) and items (n, d), unit vectors or standard normal;
-    item 3's row is copied to ``duplicates`` - 1 higher ids (exact ties)."""
+    item 3's row (the last item's in a catalog of 3 or fewer) is copied to
+    ``duplicates`` - 1 higher ids spread over the catalog, or to the ids
+    ``dup_at`` (exact ties), and query 0 is that row, so the copies lead its
+    top-k."""
     q = rng.standard_normal((nq, d), dtype=np.float32)
     items = rng.standard_normal((n, d), dtype=np.float32)
     if normalize:
         q /= np.linalg.norm(q, axis=1, keepdims=True)
         items /= np.linalg.norm(items, axis=1, keepdims=True)
-    dup = [3] + [int(j) for j in np.linspace(n // 2, n - 1, duplicates - 1)]
-    items[dup] = items[3]
+    if dup_at is None:
+        dup_at = [int(j) for j in np.linspace(n // 2, n - 1, duplicates - 1)]
+    base = min(3, n - 1)
+    dup = [base] + sorted({int(j) for j in dup_at if base < j < n})
+    items[dup] = items[base]
+    q[0] = items[base]
     return torch.from_numpy(q).to(device), torch.from_numpy(items).to(device), dup
+
+
+def boundary_ids(n, tile, per_split) -> list[int]:
+    """Ids on both sides of the first tile boundary and of every catalog
+    split boundary below n (the kernel's plan: ``tile`` items a tile,
+    ``per_split`` a split), for duplicated rows."""
+    ids = {tile - 1, tile}
+    for s in range(per_split, n, per_split):
+        ids |= {s - 1, s}
+    return sorted(j for j in ids if 3 < j < n)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def score_limit(q, items) -> torch.Tensor:
@@ -119,6 +159,7 @@ def check_topk(q, items, k, kernel, dup=()) -> dict:
     wrong_v, wrong_i = want_v[:, :k].clone(), want_i[:, :k].clone()
     wrong_v[:, -1], wrong_i[:, -1] = want_v[:, k], want_i[:, k]
     want_v, want_i = want_v[:, :k], want_i[:, :k]
+    tf32_v, tf32_i = topk_ref.topk_scores(tf32(q), tf32(items), k)
     limit = score_limit(q, items)
     exact = torch.einsum("qd,qkd->qk", q.double(), items.double()[i.long()])
     res = {"max_abs_err": float((v - want_v).abs().max()),
@@ -127,7 +168,10 @@ def check_topk(q, items, k, kernel, dup=()) -> dict:
            "recomputed_within": bool(((v.double() - exact).abs() <= limit.double()).all()),
            "distinct": bool((i.sort(1).values.diff(1) != 0).all()) if k > 1 else True,
            "wrong_kth_swapped_max_abs_err": float((wrong_v - want_v).abs().max()),
-           "wrong_rejected": not topk_agrees(wrong_v, wrong_i, want_v, q, items, limit)}
+           "wrong_rejected": not topk_agrees(wrong_v, wrong_i, want_v, q, items, limit),
+           "wrong_single_pass_tf32_max_abs_err": float((tf32_v - want_v).abs().max()),
+           "wrong_single_pass_tf32_rejected": not topk_agrees(tf32_v, tf32_i, want_v, q, items,
+                                                              limit)}
     # exact ties: a duplicated row's copies enter in id order, lower first
     ties_ok = True
     for a, b in zip(dup, dup[1:]):
@@ -137,5 +181,6 @@ def check_topk(q, items, k, kernel, dup=()) -> dict:
         ties_ok &= bool((~has_b | (has_a & (pos_a < pos_b))).all())
     res["exact_ties_lower_id_first"] = ties_ok
     res["ok"] = all(res[key] for key in ("within", "recomputed_within", "distinct",
-                                         "wrong_rejected", "exact_ties_lower_id_first"))
+                                         "wrong_rejected", "wrong_single_pass_tf32_rejected",
+                                         "exact_ties_lower_id_first"))
     return res

@@ -136,7 +136,7 @@ def test_topk_in_domain_mirrors_the_kernels_plan(cuda):
     plan = (ctypes.c_int * 5)()
     for k in (1, 2, 10, 16, 17):
         for n in (k, k + 1, 20_000):
-            for d in (*range(1, 1200, 37), 904, 905, 908, 909, 912, 913):
+            for d in (*range(1, 1200, 37), 124, 125, 128, 129, 132, 133, 904, 909):
                 got = lib.topk_scores_plan(64, n, -(-d // 4), k,
                                            ctypes.cast(plan, ctypes.c_void_p))
                 assert topk_ref.in_domain(k, n, d) == bool(got), (k, n, d)
@@ -873,6 +873,26 @@ def test_pooled_gather_kernel_matches_plain(cuda, skewed, dtype, b, length, v, d
     assert length == 1 or res["wrong_rejected"], res
 
 
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 50, 64, 65, 200])
+@pytest.mark.parametrize("d", [4, 12, 32, 33, 128, 130])
+def test_pooled_gather_kernel_geometry(cuda, skewed, dtype, length, d):
+    """check_pooled across the kernel's geometries: histories of one pass
+    of 64 positions and more, rows of 16 to 520 bytes (two examples a warp
+    at D <= 16, column blocks past 32 lanes, the element-a-lane path at odd
+    D), empty histories, and the same on an unaligned table."""
+    table, rows, mask = retrieval_check.pooled_inputs(np.random.default_rng(length * d), 67,
+                                                      length, 2000, d, dtype, skewed, cuda)
+    for t in (table, retrieval_check.unaligned(table)):
+        before = dispatch.LAUNCHES["pooled_gather"]
+        res = retrieval_check.check_pooled(t, rows, mask, dispatch.pooled_gather)
+        torch.cuda.synchronize()
+        assert dispatch.LAUNCHES["pooled_gather"] == before + 1
+        assert res["within"] and res["empty_rows_zero"] and res["empty_rows"] > 0, res
+        assert length == 1 or res["wrong_rejected"], res
+
+
 def test_segment_sum_gather_gradient_on_card_matches_cpu(cuda):
     table, rows, mask = retrieval_check.pooled_inputs(np.random.default_rng(14), 256, 20, 1000,
                                                       32, torch.float32, True, "cpu")
@@ -893,18 +913,40 @@ def test_segment_sum_gather_gradient_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("k", [1, 10, 16])
 @pytest.mark.parametrize("nq, n, d", [(8192, 19_203, 32), (3616, 19_203, 32), (100, 1000, 64),
-                                      (5, 17, 30), (70, 500, 300)])
+                                      (5, 17, 30), (70, 500, 128), (300, None, 32),
+                                      (1000, 5000, 4), (1000, 5000, 12), (1000, 5000, 64),
+                                      (1000, 5000, 124)])
 def test_topk_kernel_matches_plain(cuda, k, nq, n, d):
     """retrieval_check.check_topk: values and ranks within the score limit
-    (near-ties may swap), exact ties lower id first, the k-th entry swapped
-    for the (k+1)-th rejected (D = 30 is padded to 32 columns, D = 300 uses
-    the narrow query tile)."""
-    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(15), nq, n, d, cuda)
+    (near-ties may swap), exact ties lower id first (rows copied across the
+    plan's tile and split boundaries), the k-th entry swapped for the
+    (k+1)-th and single-pass TF32 scores rejected (D = 30 and 124 are padded
+    to a multiple of 8 columns; n None is k + 1 items; D = 128 is the edge
+    of the domain, 129 past it in the route test below)."""
+    n = n or k + 1
+    plan = dispatch.topk_plan(nq, n, d, k)
+    dup = retrieval_check.boundary_ids(n, plan[1], plan[3])
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(15), nq, n, d, cuda,
+                                                dup_at=dup)
     before = dispatch.LAUNCHES["topk_scores"]
     res = retrieval_check.check_topk(q, items, k, dispatch.topk_scores_fused, dup)
     torch.cuda.synchronize()
     assert dispatch.LAUNCHES["topk_scores"] == before + 1
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("d", [129, 300])
+def test_topk_route_past_the_kernels_widths_matches_plain(cuda, d):
+    """Past D = 128 both retrieval functions take the score route, with no
+    launch, and meet check_topk's limits (D = 300 was a kernel case while
+    the kernel staged queries in shared memory)."""
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(15), 70, 500, d, cuda)
+    before = dispatch.LAUNCHES["topk_scores"]
+    for fn in (topk_scores, topk_scores_streaming):
+        for k in (1, 10, 16):
+            res = retrieval_check.check_topk(q, items, k, fn, dup)
+            assert res["ok"], (fn.__name__, k, res)
+    assert dispatch.LAUNCHES["topk_scores"] == before
 
 
 def test_topk_kernel_takes_a_million_items(cuda):

@@ -99,7 +99,8 @@ def test_flash_in_domain_is_every_multiple_of_8_up_to_128():
 def test_topk_in_domain_refuses_k_outside_1_16_and_widths_past_shared_memory():
     assert topk_ref.in_domain(10, 19_203, 32) and topk_ref.in_domain(10, 1_000_000, 64)
     assert not topk_ref.in_domain(17, 1000, 32) and not topk_ref.in_domain(10, 10, 32)
-    assert topk_ref.in_domain(10, 1000, 908) and not topk_ref.in_domain(10, 1000, 909)
+    assert topk_ref.in_domain(10, 1000, 128) and not topk_ref.in_domain(10, 1000, 129)
+    assert topk_ref.in_domain(10, 1000, 4) and topk_ref.in_domain(10, 1000, 1)
     assert not topk_ref.in_domain(10, 1000, 1024) and not topk_ref.in_domain(10, 1000, 0)
 
 

@@ -23,6 +23,7 @@ from recsys_tpu.kernels.pallas.topk_tpu import topk_scores_pallas
 from recsys_tpu.train import losses as jax_losses
 from recsys_tpu.train import metrics as jax_metrics
 from recsys_tpu.train import retrieval as jax_retrieval
+import retrieval_check
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels import embedding as emb_ref
 from recsys_tpu_torch.kernels import topk as topk_ref
@@ -130,6 +131,62 @@ def test_topk_kernel_domain():
         assert not topk_ref.in_domain(k, n, 4)
         with pytest.raises(ValueError, match="1 <= k <= 16"):
             dispatch.topk_scores_fused(q, items[:n], k)
+    # D padded to a multiple of 4 must lie in [4, 128]
+    for d, takes in ((1, True), (4, True), (12, True), (125, True), (128, True),
+                     (129, False), (132, False), (0, False)):
+        assert topk_ref.in_domain(10, 20, d) == takes, d
+    with pytest.raises(ValueError, match="does not take D=129"):
+        dispatch.topk_scores_fused(torch.zeros(2, 129), torch.zeros(20, 129), 10)
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("nq, n, d", [(37, 300, 12), (5, None, 30), (9, 400, 128),
+                                      (130, 1000, 4)])
+def test_retrieval_check_holds_the_plain_topk_and_rejects_wrong_results(k, nq, n, d):
+    """check_topk, as the card runs it, with the wrapper's plain version on
+    the CPU: within every limit, exact ties (rows copied across tile and
+    split boundaries) lower id first, and both wrong results (the k-th entry
+    swapped, single-pass TF32 scores) rejected."""
+    n = n or k + 1
+    dup = retrieval_check.boundary_ids(n, 64, 96)
+    q, items, dup = retrieval_check.topk_inputs(np.random.default_rng(nq + k), nq, n, d, "cpu",
+                                                dup_at=dup)
+    res = retrieval_check.check_topk(q, items, k, dispatch.topk_scores_fused, dup)
+    assert res["ok"], res
+    assert res["indices_equal_share"] == 1.0 and res["max_abs_err"] == 0.0
+
+
+def test_retrieval_check_helpers():
+    # 10 mantissa bits: the spacing at 1 is 2^-10
+    x = torch.tensor([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-12, 1.0 + 2.0**-11,
+                      -(1.0 + 3 * 2.0**-11), 3.0e-30])
+    got = retrieval_check.tf32(x)
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    # ties round away from zero, as cvt.rna does
+    assert got[:5].tolist() == [1.0, 1.0 + 2.0**-10, 1.0, 1.0 + 2.0**-10, -(1.0 + 2.0**-9)]
+    assert retrieval_check.boundary_ids(300, 64, 128) == [63, 64, 127, 128, 255, 256]
+    assert retrieval_check.boundary_ids(11, 64, 64) == []
+    table = torch.arange(12.0).view(4, 3)
+    t = retrieval_check.unaligned(table)
+    assert t.data_ptr() % 16 == 4 and t.is_contiguous() and torch.equal(t, table)
+
+
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 50, 64, 65, 200])
+@pytest.mark.parametrize("d", [4, 12, 32, 33, 128, 130])
+def test_retrieval_check_holds_the_plain_pooled_gather(length, d):
+    """check_pooled at the card checks' geometries with the wrapper's plain
+    version on the CPU: within the limit, empty histories 0, and the sum
+    without each history's last id rejected (f32 uniform ids, a bf16 table
+    with Zipf ids, an unaligned f32 table)."""
+    for dtype, skewed, shift in ((torch.float32, False, False), (torch.bfloat16, True, False),
+                                 (torch.float32, True, True)):
+        table, rows, mask = retrieval_check.pooled_inputs(np.random.default_rng(length + d), 9,
+                                                          length, 300, d, dtype, skewed, "cpu")
+        if shift:
+            table = retrieval_check.unaligned(table)
+        res = retrieval_check.check_pooled(table, rows, mask, dispatch.pooled_gather)
+        assert res["within"] and res["empty_rows_zero"] and res["empty_rows"] > 0, res
+        assert length == 1 or res["wrong_rejected"], res
 
 
 @pytest.mark.parametrize("normalize", [False, True])
