@@ -75,16 +75,18 @@ checkout.  Phases, one JSON line each:
                 at 512; launch counts, finite loss, one more step against
                 the plain step, step time, and a profile of one step split
                 into attention, GEMMs, gathers, loss and optimizer.
-10. sasrec cli -- the cli sasrec flow: synthetic ratings, the numpy
-                dataset builder at max_len 50, fit for 2 epochs, predict and
-                HR@10, on the kernels.
+10. sasrec cli -- python -m recsys_tpu_torch.cli sasrec --epochs 2
+                --batch-size 128 (synthetic ratings, the numpy dataset
+                builder at max_len 50, fit, predict, HR@10), every flash
+                launch counted.
 11. flash timing -- kernel, plain and torch SDPA ms at S = 512 (B = 256)
                 and S = 2048 (B = 32; the kernels also at B = 256), beside
                 the split-TF32 bound (3 TF32 products an f32 product at 495
                 TFLOP/s) and the CUDA cores' f32 bound (67 TFLOP/s).
 12. youtube data -- realistic_ratings at the protocol seqret widths (20,000
-                items, users cut to 20,000) and the numpy retrieval dataset
-                at max_len 50.
+                items, users cut to 20,000), with the side features the
+                two-tower phase uses, and the numpy retrieval dataset at
+                max_len 50.
 13. youtube check -- the pooled-gather and top-k kernels against their plain
                 versions (retrieval_check.py): the pooled gather at B = 1024
                 and 1000, L = 50, D = 32 and 128, f32 and bf16 tables,
@@ -115,6 +117,21 @@ checkout.  Phases, one JSON line each:
                 sweep shape; the top-k's split-TF32 bound (3 TF32 products
                 an f32 product at 495 TFLOP/s) with the CUDA cores' beside
                 it, and its plan.
+16b. mind    -- MIND at protocol mind's widths (D = 32, 4 capsules, 3
+                routing iterations, user MLP 64), weights from the seed, on
+                the youtube data: 50 logQ-softmax steps of 1024 rows (finite
+                losses, the last below the first; no kernel on this path),
+                then 4096-user blocks: each capsule's top-10 over the
+                catalog through the top-k kernel (every launch held against
+                the plain top-k), the merge into 10 distinct items and
+                recall@10; step and block times.
+16c. two-tower -- DSSM, SENet-DSSM and FM-match at protocol dssm's widths
+                (user id, age bin, gender, occupation; item id and category;
+                D = 16, towers 128-64-32) on the same ratings: 20 fit steps of
+                2048 rows each (FM-match through the bi-interaction kernel,
+                held against its plain version on one batch), then top-10 in
+                8192-user blocks through the top-k kernel, every launch held
+                against the plain top-k, and recall@10.
 17. ctr check -- the FM bi-interaction kernel against its plain version
                 (ctr_check.py): F = 1, 2, 26, 39, 70 fields, D = 1, 8, 16, 32,
                 36, B = 0, 1, 513, 4096, f32 and bf16, and large nearly
@@ -156,7 +173,16 @@ checkout.  Phases, one JSON line each:
                 tables (one launch) in turns with torch's fused Adam, the
                 walk beside its add-chain floor, the hot gather beside its
                 launch floor (an empty kernel at its grid, launch_floor_ms).
-25. kernels  -- one line naming every kernel with its launches and times.
+24b. cli     -- python -m recsys_tpu_torch.cli at the JAX CLI's fixture
+                sizes: ctr --model fm (1 epoch), youtube, mind and match
+                --model dssm, senet, fm (2 epochs each); each prints its
+                result line and launches exactly what its path holds.
+24c. protocol seq -- the protocol runner's sasrec (drift 2.0), seqret, mind
+                and dssm modes at full widths, users cut to 20,000, one epoch
+                each: each prints its JSON line, launches the kernels of its
+                path and no other, and reports metrics in [0, 1].
+25. kernels  -- the total time, then one line naming every kernel with its
+                launches and times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits non-zero; with no card it exits non-zero before any phase.
@@ -170,6 +196,7 @@ import ctypes
 import functools
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1677,40 +1704,115 @@ def phase_sasrec_train(rng, dev) -> dict:
     return results
 
 
-def phase_sasrec_cli(dev) -> dict:
-    """cli sasrec's flow on the kernels: synthetic ratings, the all-position
-    dataset at max_len 50, fit for 2 epochs, predict the test rows, HR@10."""
+def cli_run(argv, expected: dict, label: str) -> dict:
+    """``recsys_tpu_torch.cli.main(argv)`` on the card, its output echoed and
+    its result line (the last) returned with the launches, counts zeroed
+    just before and read just after, and the task's returned ``result``;
+    raises unless the launches are ``expected`` (a {kernel: count} of those
+    that launch) and every epoch's training loss is finite."""
+    import io
+
     import torch
 
-    from recsys_tpu_torch.data.movielens import build_sasrec_dataset, synthetic_ratings
+    from recsys_tpu_torch import cli
     from recsys_tpu_torch.kernels import dispatch
-    from recsys_tpu_torch.models.match.sasrec import SASRec
-    from recsys_tpu_torch.train.loop import Trainer
-    from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k
 
-    ni, train, _, test = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
-                                              maxlen=50, all_positions=True)
-    torch.manual_seed(0)
-    model = SASRec(num_items=ni, embed_dim=64, max_len=50, device=dev)
-    trainer = Trainer(model, loss_fn=sasrec_loss, learning_rate=LR)
-    dispatch.reset_launches()
-    hist = trainer.fit(train, batch_size=128, epochs=2, verbose=False)
-    out = trainer.predict(test)
+    buf = io.StringIO()
     torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = dict(dispatch.LAUNCHES)
+    want = ctr_expected(expected)
+    lines = buf.getvalue().strip().splitlines()
+    print(f"{label}: {lines[-1]}", flush=True)
+    if launches != want or not result["loss"] or not np.isfinite(result["loss"]).all():
+        raise AssertionError(f"{label}: launches {launches}, expected {want}, "
+                             f"loss {result['loss']}")
+    return {"phase": "cli", "task": label, "argv": argv, "line": lines[-1],
+            "seconds": seconds, "launches": launches, "expected_launches": want,
+            "result": result}
+
+
+def eval_forwards(n: int, b: int) -> int:
+    """Forward passes of ``Trainer.evaluate_loss`` over n rows in batches of
+    b: one a batch, and one more for a padded last batch's repeated row."""
+    return -(-n // b) + (n % b != 0)
+
+
+def phase_sasrec_cli(dev) -> dict:
+    """``cli sasrec`` on the kernels: synthetic ratings, the all-position
+    dataset at max_len 50, fit for 2 epochs of 128 rows (every epoch's loss
+    finite), predict the test rows, HR@10; every flash launch counted."""
+    from recsys_tpu_torch.data.movielens import build_sasrec_dataset, synthetic_ratings
+
+    _, train, _, _ = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
+                                          maxlen=50, all_positions=True)
     steps = 2 * (len(train["hist"]) // 128)
-    expected = {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * steps + 2,
-                "flash_attention_bwd": 2 * steps}
-    if launches != expected or not np.isfinite(hist["loss"]).all():
-        raise AssertionError(f"sasrec cli: launches {launches}, expected {expected}, "
-                             f"loss {hist['loss']}")
-    hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
-    print(f"sasrec cli: test HR@10={hr:.4f} NDCG@10={ndcg:.4f}", flush=True)
-    res = {"phase": "sasrec cli", "num_items": ni, "train_rows": len(train["hist"]),
-           "test_rows": len(test["hist"]), "loss": hist["loss"], "HR@10": hr,
-           "NDCG@10": ndcg, "launches": launches, "expected_launches": expected}
+    res = cli_run(["sasrec", "--epochs", "2", "--batch-size", "128"],
+                  {"flash_attention_fwd": 2 * steps + 2, "flash_attention_bwd": 2 * steps},
+                  "sasrec cli")
+    out = res.pop("result")
+    m = re.fullmatch(r"test HR@10=([0-9.]+) NDCG@10=([0-9.]+)", res["line"])
+    if not m or not 0.0 <= float(m.group(2)) <= float(m.group(1)) <= 1.0 or \
+            out["train_rows"] != len(train["hist"]):
+        raise AssertionError(f"sasrec cli: result line {res['line']!r}, {out}")
+    res.update({"phase": "sasrec cli", **out})
     emit(res)
     return res
+
+
+RECALL_LINE = r"recall@10: ([0-9.]+) over (\d+) items \(random ([0-9.]+)\)"
+
+
+def phase_cli(dev) -> dict:
+    """The other ported ``python -m recsys_tpu_torch.cli`` tasks on the card
+    at the JAX CLI's fixture sizes (synthetic ratings of 300 users and 150
+    items, 20,000 synthetic CTR rows): ctr (FM, 1 epoch), youtube, mind and
+    match (dssm, senet, fm), 2 epochs each; each prints its result line and
+    launches exactly what its path holds.  {task: result}."""
+    from recsys_tpu_torch.data.movielens import (build_ml100k_arrays,
+                                                 build_seq_retrieval_dataset, synthetic_ratings,
+                                                 synthetic_user_item_frames)
+
+    out = {}
+    # ctr fm: 14,400 training rows in 512s, 1,600 validation rows, then the
+    # 4,000 test rows in one request
+    ctr_fm = 14_400 // 512 + eval_forwards(1_600, 512) + 1
+    out["ctr"] = cli_run(["ctr", "--model", "fm", "--epochs", "1"],
+                         {"fm_pairwise_vector": ctr_fm}, "cli ctr --model fm")
+    _, seq_train, _ = build_seq_retrieval_dataset(synthetic_ratings(num_users=300,
+                                                                    num_items=150), maxlen=50)
+    n = len(seq_train["item_id"])
+    out["youtube"] = cli_run(["youtube", "--epochs", "2"],
+                             {"pooled_gather": 2 * (n // min(512, n)) + 1, "topk_scores": 1},
+                             "cli youtube")
+    # MIND's CLI scores every capsule with a matmul and torch.topk, as the
+    # JAX CLI does with lax.top_k
+    out["mind"] = cli_run(["mind", "--epochs", "2"], {}, "cli mind")
+    _, _, train, _ = build_ml100k_arrays(synthetic_ratings(num_users=300, num_items=150),
+                                         *synthetic_user_item_frames(300, 150), embed_dim=8)
+    fit_n = int(len(train["label"]) * 0.9)  # fit's validation split
+    b = min(512, fit_n)
+    fm_forwards = 2 * (fit_n // b + eval_forwards(len(train["label"]) - fit_n, b))
+    for model in ("dssm", "senet", "fm"):
+        out[f"match {model}"] = cli_run(
+            ["match", "--model", model, "--epochs", "2"],
+            {"topk_scores": 1, **({"fm_pairwise_vector": fm_forwards} if model == "fm" else {})},
+            f"cli match --model {model}")
+    for task, res in out.items():
+        line = res["line"]
+        ok = (re.fullmatch(r"test AUC: ([0-9.]+)", line) if task == "ctr"
+              else re.fullmatch(RECALL_LINE, line))
+        if not ok or not 0.0 <= float(ok.group(1)) <= 1.0:
+            raise AssertionError(f"cli {task}: result line {line!r}")
+    emit({"phase": "cli", "tasks": {k: {"loss": v["result"]["loss"],
+                                        **{kk: v[kk] for kk in ("line", "seconds", "launches")}}
+                                    for k, v in out.items()}})
+    return out
 
 
 def attention_work(b, h, s, d, passes, tensors) -> tuple[float, float]:
@@ -1808,13 +1910,15 @@ def phase_flash_timing(rng, dev) -> dict:
 
 # -- YoutubeDNN ---------------------------------------------------------------
 def phase_youtube_data() -> tuple:
-    """The protocol's ratings and the retrieval dataset: (num_items, train,
-    test)."""
+    """The protocol's ratings with their side features (the two-tower
+    phase's) and the retrieval dataset: (num_items, train, test, ratings,
+    meta)."""
     from recsys_tpu_torch.data.movielens import build_seq_retrieval_dataset
     from recsys_tpu_torch.data.realistic import realistic_ratings
 
     t0 = time.perf_counter()
-    ratings = realistic_ratings(num_users=YOUTUBE_USERS, num_items=YOUTUBE_ITEMS, seed=0)
+    ratings, meta = realistic_ratings(num_users=YOUTUBE_USERS, num_items=YOUTUBE_ITEMS, seed=0,
+                                      return_meta=True)
     t1 = time.perf_counter()
     ni, train, test = build_seq_retrieval_dataset(ratings, maxlen=YOUTUBE_MAXLEN)
     emit({"phase": "youtube data", "users": YOUTUBE_USERS, "items": YOUTUBE_ITEMS,
@@ -1822,7 +1926,7 @@ def phase_youtube_data() -> tuple:
           "train_rows": len(train["item_id"]), "test_rows": len(test["item_id"]),
           "test_real_positions_share": float((test["hist"] != 0).mean()),
           "ratings_seconds": t1 - t0, "dataset_seconds": time.perf_counter() - t1})
-    return ni, train, test
+    return ni, train, test, ratings, meta
 
 
 def phase_youtube_check(rng, dev, num_items) -> dict:
@@ -2220,6 +2324,300 @@ def phase_youtube_timing(rng, dev, test_hist, num_items) -> dict:
 
 
 # -- the CTR protocol models ---------------------------------------------------
+MIND_DIM = 32           # protocol mind's widths
+MIND_K = 4
+MIND_ITERS = 3
+MIND_UNITS = (64,)
+MIND_BATCH = 1024
+MIND_STEPS = 50
+TT_BATCH = 2048          # protocol dssm's widths and batch
+TT_STEPS = 20
+
+
+def logq_loss(train_item_ids, num_items, dev):
+    """The logQ-corrected in-batch softmax of the retrieval protocols, its
+    log q from the train stream's item counts."""
+    from recsys_tpu_torch.tools.protocol import logq_softmax
+    from recsys_tpu_torch.train import losses
+
+    return logq_softmax(losses.popularity_log_q(
+        np.bincount(train_item_ids, minlength=num_items)).to(dev))
+
+
+def timed_steps(trainer, batch, n=7) -> list:
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_served_topk(label, served, items) -> dict:
+    """Each served block's (queries, values, ids) from the kernel against the
+    plain top-k of the same queries, by retrieval_check's near-tie rule."""
+    import retrieval_check as rc
+    from recsys_tpu_torch.kernels import topk as topk_ref
+
+    import torch
+
+    agree, equal = [], []
+    with torch.inference_mode():
+        for q, v, i in served:
+            want_v, want_i = topk_ref.topk_scores(q, items, v.shape[1])
+            agree.append(rc.topk_agrees(v, i, want_v, q, items, rc.score_limit(q, items)))
+            equal.append(float((i == want_i).double().mean()))
+    res = {"phase": "check", "case": f"{label} top-10 kernel launches vs plain",
+           "launches_checked": len(served), "indices_equal_share": min(equal),
+           "ranks_agree_within_score_limit": all(agree), "score_rtol_of_norms": rc.SCORE_RTOL,
+           "ok": all(agree)}
+    emit(res)
+    if not all(agree):
+        raise AssertionError(f"{label}: a top-10 launch disagrees with the plain top-k")
+    return res
+
+
+def phase_mind(train, test, num_items, dev) -> dict:
+    """MIND at protocol mind's widths, weights from the seed: MIND_STEPS
+    train steps of MIND_BATCH rows (the logQ softmax; no kernel on this
+    path), then run_mind's serving over the test users in its blocks
+    (``protocol.mind_block_topk``): the capsules' top-10 through the top-k
+    kernel (every launch held against the plain top-k), the merge into 10
+    distinct items and recall@10."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.match.mind import MIND
+    from recsys_tpu_torch.tools.protocol import MIND_BLOCK, mind_block_topk
+    from recsys_tpu_torch.train.loop import Trainer
+    from recsys_tpu_torch.train.metrics import recall_at_k
+
+    torch.manual_seed(0)
+    model = MIND(num_items, embed_dim=MIND_DIM, k_max=MIND_K, routing_iterations=MIND_ITERS,
+                 user_units=MIND_UNITS, device=dev)
+    trainer = Trainer(model, loss_fn=logq_loss(train["item_id"], num_items, dev),
+                      learning_rate=LR)
+    order = np.random.default_rng(0).permutation(len(train["item_id"]))
+    batches = [{k: v[order[s * MIND_BATCH:(s + 1) * MIND_BATCH]] for k, v in train.items()}
+               for s in range(MIND_STEPS + 1)]
+    torch.cuda.synchronize()
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(b) for b in batches[:MIND_STEPS]]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(dispatch.LAUNCHES)
+    losses = [float(x) for x in losses]
+    if train_launches != ctr_expected({}) or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mind train: launches {train_launches}, losses {losses[0]} .. "
+                             f"{losses[-1]} (finite, falling)")
+    steps_ms = timed_steps(trainer, batches[-1])
+
+    model.eval()
+    hist, n = test["hist"], len(test["hist"])
+    blocks = -(-n // MIND_BLOCK)
+
+    def serve(h):
+        return mind_block_topk(model, h, items, k=YOUTUBE_K)
+
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    with torch.inference_mode():
+        items = model.all_item_embeddings()
+        served = [serve(hist[s:s + MIND_BLOCK]) for s in range(0, n, MIND_BLOCK)]
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    expected = ctr_expected({"topk_scores": blocks})
+    merged = np.concatenate([r[3] for r in served])
+    if launches != expected or merged.shape != (n, YOUTUBE_K):
+        raise AssertionError(f"mind serve: launches {launches}, expected {expected}")
+    recall = recall_at_k(merged, test["item_id"])
+    check = check_served_topk("mind serve", [r[:3] for r in served], items)
+    lat = []
+    with torch.inference_mode():
+        for _ in range(7):
+            t0 = time.perf_counter()
+            serve(hist[:MIND_BLOCK])
+            lat.append((time.perf_counter() - t0) * 1e3)
+    res = {"phase": "mind", "steps": MIND_STEPS, "batch": MIND_BATCH, "first_loss": losses[0],
+           "last_loss": losses[-1], "train_launches": train_launches,
+           "train_seconds": train_s, "step_ms_median": float(np.median(steps_ms)),
+           "step_examples_per_s": MIND_BATCH / (float(np.median(steps_ms)) / 1e3),
+           "queries": n, "blocks": blocks, "recall@10": recall,
+           "random_recall@10": YOUTUBE_K / num_items, "launches": launches,
+           "expected_launches": expected, "indices_equal_share": check["indices_equal_share"],
+           "block_ms_median": float(np.median(lat)), "block_ms_min": float(np.min(lat)),
+           "users_per_s": MIND_BLOCK / (float(np.median(lat)) / 1e3)}
+    print(f"mind: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {MIND_STEPS} steps; "
+          f"recall@10={recall:.4f} over {num_items} items (random {YOUTUBE_K / num_items:.5f})",
+          flush=True)
+    emit(res)
+    return res
+
+
+def phase_two_tower(ratings, meta, dev) -> dict:
+    """DSSM, SENet-DSSM and FM-match at protocol dssm's widths (the ratings
+    of the youtube phase with their side features): TT_STEPS steps of
+    TT_BATCH rows each (FM-match through the bi-interaction kernel, its
+    output on one batch held against the plain version), then run_dssm's
+    serving (``protocol.tower_block_topk``): top-10 over the catalog in
+    user blocks through the top-k kernel, every launch held against the
+    plain top-k, and recall@10.  {model: result}."""
+    import torch
+
+    import ctr_check
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.match.fm_match import FMMatch
+    from recsys_tpu_torch.models.match.two_tower import TwoTower
+    from recsys_tpu_torch.tools.protocol import (TOWER_BLOCK, dssm_data, tower_block_topk,
+                                                 tower_item_embeddings)
+    from recsys_tpu_torch.train.loop import Trainer
+    from recsys_tpu_torch.train.metrics import recall_at_k
+
+    data = dssm_data(ratings, meta, YOUTUBE_ITEMS)
+    out = {}
+    for name in ("dssm", "senet", "fm_match"):
+        torch.manual_seed(0)
+        if name == "fm_match":
+            model = FMMatch(data["user_schema"], data["item_schema"], device=dev)
+            train = data["bce_train"]
+            trainer = Trainer(model, learning_rate=LR)
+        else:
+            model = TwoTower(data["user_schema"], data["item_schema"], out_dim=32,
+                             use_senet=(name == "senet"), output_mode="pair", device=dev)
+            train = data["pair_train"]
+            trainer = Trainer(model, loss_fn=logq_loss(train["item_id"],
+                                                       YOUTUBE_ITEMS + 1, dev),
+                              learning_rate=LR)
+        order = np.random.default_rng(0).permutation(len(next(iter(train.values()))))
+        head = {k: v[order[:TT_STEPS * TT_BATCH]] for k, v in train.items()}
+        extra = {k: v[order[TT_STEPS * TT_BATCH:(TT_STEPS + 1) * TT_BATCH]]
+                 for k, v in train.items()}
+        torch.cuda.synchronize()
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        hist = trainer.fit(head, batch_size=TT_BATCH, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        train_launches = dict(dispatch.LAUNCHES)
+        want = ctr_expected({"fm_pairwise_vector": TT_STEPS} if name == "fm_match" else {})
+        if train_launches != want or not np.isfinite(hist["loss"]).all():
+            raise AssertionError(f"{name} train: launches {train_launches}, expected {want}, "
+                                 f"loss {hist['loss']}")
+        steps_ms = timed_steps(trainer, extra)
+        res = {"phase": "two-tower", "model": name, "steps": TT_STEPS, "batch": TT_BATCH,
+               "epoch_loss": hist["loss"][0], "train_launches": train_launches,
+               "step_ms_median": float(np.median(steps_ms))}
+        model.eval()
+        if name == "fm_match":
+            with torch.no_grad():
+                fields = torch.cat([
+                    model.user_table(torch.from_numpy(extra["user_sparse"]).to(dev)),
+                    model.item_table(torch.from_numpy(extra["item_sparse"]).to(dev))], 1)
+            fm = ctr_check.check(dispatch.fm_pairwise_vector_fused, fields.contiguous())
+            ok = fm["excess"] <= 1.0 and fm["wrong_least_excess"] > 1.0
+            emit({"phase": "check", "case": f"fm_match fields {tuple(fields.shape)} fm kernel "
+                  "vs plain", **fm, "limit": f"{ctr_check.LIMIT} of (sum_f |x_fd|)^2",
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"fm_match: the bi-interaction kernel disagrees: {fm}")
+            res["fm_max_abs_err"] = fm["max_abs_err"]
+
+        cat, users = data["catalog"], data["test_users"]
+        blocks = -(-len(users) // TOWER_BLOCK)
+
+        def block(u):
+            return tower_block_topk(model, meta, u, items, k=YOUTUBE_K)
+
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        with torch.inference_mode():
+            items = tower_item_embeddings(model, cat, dev)
+            served = [block(users[s:s + TOWER_BLOCK])
+                      for s in range(0, len(users), TOWER_BLOCK)]
+            ids = np.concatenate([r[3] for r in served])
+        torch.cuda.synchronize()
+        launches = dict(dispatch.LAUNCHES)
+        want = ctr_expected({"topk_scores": blocks})
+        if launches != want:
+            raise AssertionError(f"{name} serve: launches {launches}, expected {want}")
+        recall = recall_at_k(ids, data["test_items"])
+        check = check_served_topk(f"{name} serve", [r[:3] for r in served], items)
+        lat = []
+        with torch.inference_mode():
+            for _ in range(7):
+                t0 = time.perf_counter()
+                block(users[:TOWER_BLOCK])
+                lat.append((time.perf_counter() - t0) * 1e3)
+        res.update({"queries": len(users), "blocks": blocks, "recall@10": recall,
+                    "random_recall@10": YOUTUBE_K / YOUTUBE_ITEMS, "launches": launches,
+                    "expected_launches": want,
+                    "indices_equal_share": check["indices_equal_share"],
+                    "block_ms_median": float(np.median(lat)),
+                    "block_ms_min": float(np.min(lat))})
+        print(f"two-tower {name}: {TT_STEPS} steps, loss {hist['loss'][0]:.4f}; "
+              f"recall@10={recall:.4f} over {YOUTUBE_ITEMS} items", flush=True)
+        emit(res)
+        out[name] = res
+    return out
+
+
+PROTOCOL_USERS = 20_000  # the protocol's 100,000, cut: the phase stays short
+
+
+def phase_protocol_seq(dev) -> dict:
+    """The port's protocol runner in the modes sasrec (drift 2.0), seqret,
+    mind and dssm at the full widths, users cut to PROTOCOL_USERS, one
+    epoch each: each prints its JSON line, launches the kernels of its path
+    and none other, and reports finite metrics.  {mode: report}."""
+    import io
+
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.tools import protocol
+
+    paths = {"sasrec": ("flash_attention_fwd", "flash_attention_bwd"),
+             "seqret": ("pooled_gather", "topk_scores"),
+             "mind": ("topk_scores",),
+             "dssm": ("fm_pairwise_vector", "topk_scores")}
+    out = {}
+    for mode, kernels in paths.items():
+        argv = [mode, "--users", str(PROTOCOL_USERS), "--epochs", "1", "--device", str(dev)]
+        if mode == "sasrec":
+            argv += ["--drift-scale", "2.0"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            protocol.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(dispatch.LAUNCHES)
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        rep = json.loads(line)
+        metrics = [v for k, v in ([*rep.items()] + [(f"{m}.{k}", v) for m, r in
+                                                   rep.get("models", {}).items()
+                                                   for k, v in r.items()])
+                   if k.split(".")[-1] in ("HR@10", "NDCG@10", "recall@10")]
+        off = {k: n for k, n in launches.items() if (n > 0) != (k in kernels)}
+        if off or not metrics or not all(0.0 <= v <= 1.0 for v in metrics):
+            raise AssertionError(f"protocol {mode}: launches {launches} (the path's: "
+                                 f"{kernels}), metrics {metrics}")
+        out[mode] = {"phase": "protocol seq", "mode": mode, "seconds": wall,
+                     "launches": launches, "report": rep}
+        emit(out[mode])
+    return out
+
+
 def phase_ctr_check(rng, dev) -> dict:
     """ctr_check.check on every case; returns the worst abs error of the
     bi-interaction kernel at the path's shapes (4096 rows, F = 26 and 39,
@@ -2777,6 +3175,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
 
     card = phase_card()
     phase_build()
@@ -2791,7 +3190,7 @@ def main() -> int:
     sas_train = phase_sasrec_train(rng, dev)
     sas_cli = phase_sasrec_cli(dev)
     timing.update(phase_flash_timing(rng, dev))
-    ni, yt_train, yt_test = phase_youtube_data()
+    ni, yt_train, yt_test, ratings, meta = phase_youtube_data()
     worst.update(phase_youtube_check(rng, dev, ni))
     yt_params = youtube_jax_params(rng, ni)
     yt_serve = phase_youtube_serve(youtube_model(yt_params, ni, dev), yt_test, ni, dev,
@@ -2804,6 +3203,9 @@ def main() -> int:
                              f"not above random {yt_after['random_recall@10']}")
     del yt_fitted
     timing.update(phase_youtube_timing(rng, dev, yt_test["hist"], ni))
+    mind = phase_mind(yt_train, yt_test, ni, dev)
+    two_tower = phase_two_tower(ratings, meta, dev)
+    del ratings, meta, yt_train, yt_test
     worst.update(phase_ctr_check(rng, dev))
     ctr_serve = phase_ctr_serve(rng, dev)
     ctr_steps = phase_ctr_train_step(rng, dev)
@@ -2812,6 +3214,8 @@ def main() -> int:
     worst.update(phase_probe_check(rng, dev))
     probes = phase_probes(dev)
     timing.update(phase_probe_timing(rng, dev))
+    cli_runs = phase_cli(dev)
+    protocol_seq = phase_protocol_seq(dev)
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -2839,7 +3243,9 @@ def main() -> int:
     kernels = []
     runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli,
             yt_serve, yt_fit, yt_after, *ctr_serve.values(), *ctr_steps.values(),
-            ctr_protocol, probes]
+            ctr_protocol, probes, mind, {"launches": mind["train_launches"]},
+            *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
+            *cli_runs.values(), *protocol_seq.values()]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({
@@ -2850,6 +3256,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("unfused_ms", "launch_floor_ms", "f32_core_bound_ms") if k in t},
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card["nvidia_smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -1,0 +1,249 @@
+"""Experiment runner CLI of the port (the counterpart of ``python -m
+recsys_tpu.cli``): one entry point for the ported tasks, on the card unless
+``--device`` names another.
+
+    python -m recsys_tpu_torch.cli ctr     --model fm|deepfm|widedeep|deepcrossing|dcn|dlrm|autoint
+    python -m recsys_tpu_torch.cli match   --model dssm|senet|fm
+    python -m recsys_tpu_torch.cli sasrec
+    python -m recsys_tpu_torch.cli youtube
+    python -m recsys_tpu_torch.cli mind
+        ... [--epochs 10] [--batch-size 512] [--lr 1e-3] [--device cpu]
+
+Each task trains on the JAX CLI's synthetic data (``synthetic_ctr`` rows;
+``synthetic_ratings`` with ml-100k-shaped users and items) with its
+defaults: Adam at 1e-3; ``ctr`` with a 10% validation split and early
+stopping (patience 1); then prints the JAX CLI's result line (``test AUC:``,
+``test HR@10=... NDCG@10=...`` or ``recall@10: ... over N items``), and
+returns a dict of the fit's per-epoch ``loss`` and the printed metrics.  The
+tasks ``din``, ``multitask`` and ``ncf``, and the flags that read the
+user's own files or shard over devices, are refused with the ROADMAP item
+that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
+from recsys_tpu_torch.data.movielens import (build_ml100k_arrays, build_sasrec_dataset,
+                                             build_seq_retrieval_dataset, synthetic_ratings,
+                                             synthetic_user_item_frames)
+from recsys_tpu_torch.data.synthetic import synthetic_ctr
+from recsys_tpu_torch.kernels import default_device
+from recsys_tpu_torch.models.match.fm_match import FMMatch
+from recsys_tpu_torch.models.match.mind import MIND
+from recsys_tpu_torch.models.match.sasrec import SASRec
+from recsys_tpu_torch.models.match.two_tower import DSSM, SENetDSSM
+from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.tools.protocol import CTR_MODELS, logq_softmax
+from recsys_tpu_torch.train import losses
+from recsys_tpu_torch.train.loop import Trainer
+from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
+from recsys_tpu_torch.train.retrieval import BruteForceIndex, topk_scores
+
+# what the port refuses, and the ROADMAP.md item that ports it
+NOT_PORTED_TASKS = {"ncf": "Queue 1 item 6", "din": "Queue 1 item 7",
+                    "multitask": "Queue 1 item 8"}
+NOT_PORTED_FLAGS = {"data": "Queue 1 item 9", "stream": "Queue 1 item 9",
+                    "ml100k": "Queue 1 item 9", "ratings": "Queue 1 item 9",
+                    "reviews": "Queue 1 item 7", "meta": "Queue 1 item 7",
+                    "census": "Queue 1 item 8",
+                    "sample_num": "Queue 1 item 9"}  # sample_num samples --data's rows
+DEFAULT_CAPACITY_FACTOR = 2.0  # the JAX CLI's; read by the sharded engines only
+NOT_PORTED_EMBEDDING_OPTIMIZERS = {"lazy_adam": "Queue 1 item 9",
+                                   "rowwise_adagrad": "Queue 1 item 9"}
+
+
+def run_ctr(args):
+    schema, data = synthetic_ctr(num_examples=20000, embed_dim=args.embed_dim, seed=0)
+    cut = int(0.8 * len(data["label"]))
+    train = {k: v[:cut] for k, v in data.items()}
+    test = {k: v[cut:] for k, v in data.items()}
+    kw = {}
+    if args.embedding_optimizer:
+        kw["sparse_embed_grads"] = True
+    if args.bf16:
+        if args.model != "dlrm":
+            raise SystemExit("--bf16 compute is wired for --model dlrm")
+        kw["compute_dtype"] = torch.bfloat16
+    tr = Trainer(CTR_MODELS[args.model](schema, **kw), learning_rate=args.lr,
+                 embedding_optimizer=args.embedding_optimizer or None, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size, epochs=args.epochs, validation_split=0.1,
+                  early_stopping_patience=1)
+    auc = tr.evaluate_auc(test)
+    print(f"test AUC: {auc:.4f}")
+    return {"loss": hist["loss"], "auc": auc}
+
+
+def run_match(args):
+    nu, ni = 300, 150
+    users, items = synthetic_user_item_frames(nu, ni, seed=0)
+    user_schema, item_schema, train, test = build_ml100k_arrays(
+        synthetic_ratings(num_users=nu, num_items=ni), users, items, embed_dim=args.embed_dim)
+    use_softmax = args.retrieval_loss == "softmax" and args.model != "fm"
+    if args.model == "fm":
+        model = FMMatch(user_schema, item_schema)
+        dim, normalize = user_schema.embed_dim, False  # FM-match trains on inner products
+    else:
+        maker = SENetDSSM if args.model == "senet" else DSSM
+        model = maker(user_schema, item_schema, out_dim=32, gamma=10.0,
+                      output_mode="pair" if use_softmax else "score")
+        dim, normalize = 32, True  # the towers train and score by cosine
+
+    if use_softmax:
+        # positives only, the in-batch items as negatives, logQ-corrected
+        # unless --no-logq; --retrieval-loss bce is the reference protocol
+        keep = train["label"] > 0.5
+        train = {k: v[keep] for k, v in train.items()}
+        log_q = None
+        if args.logq:
+            log_q = losses.popularity_log_q(np.bincount(
+                train["item_sparse"][:, 0], minlength=item_schema.sparse[0].vocab_size)).to(
+                default_device(args.device))
+
+        def loss_fn(out, batch):
+            lq = None if log_q is None else log_q[batch["item_sparse"][:, 0].long()]
+            return losses.in_batch_sampled_softmax(
+                F.normalize(out["user"], dim=-1, eps=1e-8),
+                F.normalize(out["item"], dim=-1, eps=1e-8), item_log_q=lq, temperature=0.1)
+
+        tr = Trainer(model, loss_fn=loss_fn, learning_rate=args.lr, device=args.device)
+        hist = tr.fit(train, batch_size=args.batch_size or 512, epochs=args.epochs)
+    else:
+        tr = Trainer(model, learning_rate=args.lr, device=args.device)
+        hist = tr.fit(train, batch_size=args.batch_size or 512, epochs=args.epochs,
+                      validation_split=0.1, early_stopping_patience=1)
+
+    n_items = item_schema.sparse[0].vocab_size
+    model.eval()
+    pos = test["label"] > 0.5
+    with torch.inference_mode():
+        catalog = torch.arange(n_items, dtype=torch.int32, device=tr.device)[:, None]
+        item_embs = model.item_embed({"item_sparse": catalog})
+        u = model.user_embed({"user_sparse": torch.from_numpy(test["user_sparse"][pos]).to(
+            tr.device)})
+    index = BruteForceIndex(dim, normalize=normalize, device=tr.device)
+    index.add(item_embs)
+    _, ids = index.search(u, 10)
+    r = recall_at_k(ids, test["item_sparse"][pos, 0])
+    print(f"recall@10: {r:.4f} over {n_items} items (random {10 / n_items:.4f})")
+    return {"loss": hist["loss"], "recall@10": r, "num_items": n_items}
+
+
+def run_sasrec(args):
+    ni, train, _, test = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
+                                              maxlen=args.maxlen,
+                                              all_positions=not args.sasrec_prefix)
+    model = SASRec(num_items=ni, embed_dim=64, max_len=args.maxlen)
+
+    def loss_fn(out, batch):
+        return losses.pairwise_bce(out["pos_logits"], out["neg_logits"], mask=out.get("mask"))
+
+    tr = Trainer(model, loss_fn=loss_fn, learning_rate=args.lr, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size or 128, epochs=args.epochs, verbose=True)
+    out = tr.predict(test)
+    hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
+    print(f"test HR@10={hr:.4f} NDCG@10={ndcg:.4f}")
+    return {"loss": hist["loss"], "HR@10": hr, "NDCG@10": ndcg, "num_items": ni,
+            "train_rows": len(train["hist"]), "test_rows": len(test["hist"])}
+
+
+def run_seq_retrieval(args):
+    """YoutubeDNN or MIND: the in-batch sampled softmax, then recall@10 over
+    the whole catalog."""
+    ni, train, test = build_seq_retrieval_dataset(
+        synthetic_ratings(num_users=300, num_items=150), maxlen=args.maxlen)
+    if args.model == "mind":
+        model = MIND(num_items=ni, embed_dim=args.embed_dim * 4, k_max=4)
+    else:
+        schema = FeatureSchema(varlen=[VarLenSparseFeature("hist_item", ni, args.embed_dim * 4,
+                                                           max_len=args.maxlen)])
+        model = YoutubeDNN(schema, num_items=ni, embed_dim=args.embed_dim * 4)
+    # logQ from the train stream's item counts (ids 1-based, 0 the pad)
+    log_q = losses.popularity_log_q(np.bincount(train["item_id"], minlength=ni)).to(
+        default_device(args.device)) if args.logq else None
+    tr = Trainer(model, loss_fn=logq_softmax(log_q), learning_rate=args.lr, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size or 256, epochs=args.epochs, verbose=True)
+    model.eval()
+    with torch.inference_mode():
+        items = model.all_item_embeddings()
+        queries = {"hist": torch.from_numpy(test["hist"]).to(tr.device)}
+        if args.model == "mind":
+            caps = model.interests(queries)  # (B, K, D)
+            ids = torch.topk(torch.matmul(caps, items.T).amax(dim=1), 10).indices
+        else:
+            ids = topk_scores(model.user_embed(queries), items, k=10)[1]
+    r = recall_at_k(ids.cpu().numpy(), test["item_id"])
+    print(f"recall@10: {r:.4f} over {ni} items (random {10 / ni:.4f})")
+    return {"loss": hist["loss"], "recall@10": r, "num_items": ni}
+
+
+def _refuse(args) -> None:
+    """SystemExit naming the ROADMAP item for a task, flag or option the
+    port does not have yet."""
+    if args.task in NOT_PORTED_TASKS:
+        raise SystemExit(f"task {args.task!r} is not ported yet "
+                         f"(ROADMAP.md {NOT_PORTED_TASKS[args.task]})")
+    for flag, item in NOT_PORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
+                             f"(ROADMAP.md {item})")
+    if args.embedding_optimizer in NOT_PORTED_EMBEDDING_OPTIMIZERS:
+        raise SystemExit(f"--embedding-optimizer {args.embedding_optimizer} is not ported yet "
+                         f"(ROADMAP.md "
+                         f"{NOT_PORTED_EMBEDDING_OPTIMIZERS[args.embedding_optimizer]})")
+    if args.embedding_engine != "gather" or args.mesh_model > 1 or \
+            args.capacity_factor != DEFAULT_CAPACITY_FACTOR:
+        raise SystemExit("the sharded embedding engines, --mesh-model and --capacity-factor "
+                         "are not ported yet (ROADMAP.md Queue 1 item 10)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="recsys_tpu_torch")
+    p.add_argument("task", choices=["ctr", "din", "multitask", "match", "ncf", "sasrec",
+                                    "youtube", "mind"])
+    p.add_argument("--model", default="fm")
+    p.add_argument("--data", default=None, help="criteo csv path (not ported yet)")
+    p.add_argument("--stream", action="store_true", help="stream --data (not ported yet)")
+    p.add_argument("--reviews", default=None)
+    p.add_argument("--meta", default=None)
+    p.add_argument("--census", nargs=2, default=None)
+    p.add_argument("--ml100k", default=None)
+    p.add_argument("--ratings", default=None)
+    p.add_argument("--embed-dim", type=int, default=8)
+    p.add_argument("--batch-size", type=int, default=512)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--maxlen", type=int, default=50)
+    p.add_argument("--sample-num", type=int, default=0,
+                   help="rows sampled from --data (not ported yet)")
+    p.add_argument("--embedding-optimizer", default="",
+                   choices=["", "lazy_adam", "rowwise_adagrad", "fused_adam",
+                            "fused_rowwise_adagrad"],
+                   help="table update of the ctr task: fused_* run the fused "
+                        "embedding-update kernels (exact dense semantics)")
+    p.add_argument("--embedding-engine", default="gather",
+                   choices=["gather", "psum", "dedup", "a2a", "a2a_pipelined"])
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--capacity-factor", type=float, default=DEFAULT_CAPACITY_FACTOR,
+                   help="a2a engines' capacity (not ported yet)")
+    p.add_argument("--bf16", action="store_true", help="bf16 compute (DLRM)")
+    p.add_argument("--retrieval-loss", choices=["softmax", "bce"], default="softmax")
+    p.add_argument("--no-logq", dest="logq", action="store_false",
+                   help="no logQ popularity correction in the in-batch softmax losses")
+    p.add_argument("--sasrec-prefix", action="store_true",
+                   help="exploded-prefix training instead of all-position")
+    p.add_argument("--device", default=None, help="default: the card")
+    args = p.parse_args(argv)
+    _refuse(args)
+    if args.task in ("youtube", "mind"):
+        args.model = args.task
+    return {"ctr": run_ctr, "match": run_match, "sasrec": run_sasrec,
+            "youtube": run_seq_retrieval, "mind": run_seq_retrieval}[args.task](args)
+
+
+if __name__ == "__main__":
+    main()

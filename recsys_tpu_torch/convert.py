@@ -1,7 +1,7 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
 ``params`` is the flax ``params`` tree of a JAX model (the CTR models,
-SASRec, YoutubeDNN) as
+SASRec, YoutubeDNN, MIND, the two towers, FM-match) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
@@ -218,4 +218,42 @@ def ctr_params_from_jax(params: dict, model) -> dict:
             state[name] = _tensor(tree)
         else:
             raise ValueError(f"no counterpart in the port for the flax params {name!r}")
+    return state
+
+
+def two_tower_params_from_jax(params: dict, model) -> dict:
+    """JAX ``TwoTower`` (DSSM, SENet-DSSM) params -> the port model's state
+    dict: ``user_table``/``item_table`` unpacked, ``user_mlp``/``item_mlp``
+    and, with SENet, ``user_se``/``item_se`` (``Dense_0``, ``Dense_1`` ->
+    ``dense0``, ``dense1``) transposed."""
+    state = {}
+    for side in ("user", "item"):
+        schema = model.sparse_schemas[f"{side}_sparse"]
+        state.update(_unpack_tables(params[f"{side}_table"], schema, None, f"{side}_table."))
+        state.update(_tower(f"{side}_mlp", params[f"{side}_mlp"], getattr(model, f"{side}_mlp")))
+        if model.use_senet:
+            for j in (0, 1):
+                state.update({f"{side}_se.dense{j}.{k}": v
+                              for k, v in _dense(params[f"{side}_se"][f"Dense_{j}"]).items()})
+    return state
+
+
+def fm_match_params_from_jax(params: dict, model) -> dict:
+    """JAX ``FMMatch`` params -> the port model's state dict: both towers'
+    tables and ``SparseLinear`` weights unpacked."""
+    state = {}
+    for side in ("user", "item"):
+        schema = model.sparse_schemas[f"{side}_sparse"]
+        state.update(_unpack_tables(params[f"{side}_table"], schema, None, f"{side}_table."))
+        state.update(_unpack_sparse_linear(params[f"{side}_linear"], schema, f"{side}_linear."))
+    return state
+
+
+def mind_params_from_jax(params: dict, model) -> dict:
+    """JAX ``MIND`` params -> the port model's state dict: ``item_table``
+    (num_items, D) as it is, ``routing/S`` and ``user_mlp``'s ``Dense_i``
+    kernels transposed."""
+    state = {"item_table": _tensor(params["item_table"]),
+             "routing.S": _tensor(params["routing"]["S"])}
+    state.update(_tower("user_mlp", params["user_mlp"], model.user_mlp))
     return state

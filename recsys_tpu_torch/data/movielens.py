@@ -1,16 +1,21 @@
-"""MovieLens-style sequence data for SASRec and YoutubeDNN (the port's copy
-of ``recsys_tpu/data/movielens.py::synthetic_ratings``,
-``build_sasrec_dataset`` and ``build_seq_retrieval_dataset``), in numpy
-only: ratings are a dict of columns (``user_id``, ``item_id``, ``rating``,
-``timestamp``) instead of a pandas DataFrame.  The functions that draw
-random numbers draw from their generator in the JAX package's order, so the
-same seed gives the same arrays bit for bit; the retrieval dataset draws
-none and is bit-equal outright.  The JAX package's native C++ version of
-the SASRec dataset is not ported yet.
+"""MovieLens-style data for SASRec, YoutubeDNN, MIND and the two-tower
+models (the port's copy of ``recsys_tpu/data/movielens.py::synthetic_ratings``,
+``build_ml100k_arrays``, ``build_sasrec_dataset`` and
+``build_seq_retrieval_dataset``, and of the user and item frames ``cli
+match`` makes), in numpy only: ratings, users and items are dicts of
+columns instead of pandas DataFrames.  The functions that draw random
+numbers draw from their generator in the JAX package's order, so the same
+seed gives the same arrays bit for bit; the retrieval dataset draws none
+and is bit-equal outright.  The JAX package's native C++ version of the
+SASRec dataset is not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature
+
+AGE_BINS = (0, 15, 25, 35, 45, 60, 100)
 
 
 def synthetic_ratings(num_users: int = 200, num_items: int = 100,
@@ -37,6 +42,83 @@ def synthetic_ratings(num_users: int = 200, num_items: int = 100,
     cols = np.asarray(rows, np.int64).reshape(-1, 4)
     return {name: cols[:, j].copy()
             for j, name in enumerate(("user_id", "item_id", "rating", "timestamp"))}
+
+
+def synthetic_user_item_frames(num_users: int = 300, num_items: int = 150,
+                               seed: int = 0) -> tuple[dict, dict]:
+    """The ml-100k-shaped user and item columns ``cli match`` pairs with
+    ``synthetic_ratings`` when no files are given: users 1..num_users with
+    an age in [10, 70), a gender in {M, F}, an occupation in a..g and a
+    zip of "0"; items 1..num_items released in "1995"."""
+    rng = np.random.default_rng(seed)
+    users = {"user_id": np.arange(1, num_users + 1),
+             "age": rng.integers(10, 70, num_users),
+             "gender": rng.choice(["M", "F"], num_users),
+             "occupation": rng.choice(list("abcdefg"), num_users),
+             "zip": np.asarray(["0"] * num_users)}
+    items = {"item_id": np.arange(1, num_items + 1),
+             "release_date": np.asarray(["1995"] * num_items)}
+    return users, items
+
+
+def _inner_join(left: dict, right: dict, key: str) -> dict:
+    """pandas' ``left.merge(right, on=key)`` on dicts of columns where
+    ``right`` holds each key once (a user or item file): the rows of
+    ``left`` whose key ``right`` holds, in their order, with ``right``'s
+    columns added."""
+    lk, rk = np.asarray(left[key]), np.asarray(right[key])
+    by_key = np.argsort(rk, kind="stable")
+    if len(rk) and (rk[by_key][1:] == rk[by_key][:-1]).any():
+        raise ValueError(f"the right-hand columns hold a {key} more than once")
+    pos = np.minimum(np.searchsorted(rk[by_key], lk), max(len(rk) - 1, 0))
+    hit = (rk[by_key][pos] == lk) if len(rk) else np.zeros(len(lk), bool)
+    out = {k: np.asarray(v)[hit] for k, v in left.items()}
+    ri = by_key[pos[hit]]
+    out.update({k: np.asarray(v)[ri] for k, v in right.items() if k != key})
+    return out
+
+
+def age_bins(age: np.ndarray) -> np.ndarray:
+    """The bin of each age in the right-closed bins (0, 15], (15, 25], ...,
+    (60, 100] as 0..5, and 0 for an age outside them: ``pd.cut(age,
+    AGE_BINS, labels=False).fillna(0)`` as float64."""
+    age = np.asarray(age, np.float64)
+    b = np.searchsorted(AGE_BINS, age, side="left") - 1
+    return np.where((b >= 0) & (b < len(AGE_BINS) - 1), b, 0).astype(np.float64)
+
+
+def build_ml100k_arrays(ratings: dict, users: dict, items: dict, embed_dim: int = 16,
+                        test_size: float = 0.2, seed: int = 2020):
+    """The ml-100k two-tower protocol: the ratings joined with their users
+    and items, label = rating >= 3, ages binned, every id column encoded to
+    0..n-1 in sorted order, then an 80/20 split by one permutation from
+    ``seed``.  Returns (user_schema, item_schema, train, test); the user
+    tower's fields are user_id, age_bin, gender and occupation, the item
+    tower's item_id, and each split is a dict of int32 ``user_sparse``,
+    ``item_sparse`` and float32 ``label``."""
+    df = _inner_join(_inner_join(ratings, users, "user_id"), items, "item_id")
+    df["label"] = (df["rating"] >= 3).astype(np.float32)
+    df["age_bin"] = age_bins(df["age"])
+    user_cols = ["user_id", "age_bin", "gender", "occupation"]
+    item_cols = ["item_id"]
+    enc = {}
+    for col in user_cols + item_cols:
+        uniques, codes = np.unique(df[col], return_inverse=True)
+        df[col + "_enc"] = codes.reshape(-1).astype(np.int32)
+        enc[col] = len(uniques)
+    user_schema = FeatureSchema(sparse=[SparseFeature(c, enc[c], embed_dim) for c in user_cols])
+    item_schema = FeatureSchema(sparse=[SparseFeature(c, enc[c], embed_dim) for c in item_cols])
+
+    n = len(df["label"])
+    idx = np.random.default_rng(seed).permutation(n)
+    cut = int(n * (1.0 - test_size))
+
+    def take(sel):
+        return {"user_sparse": np.stack([df[c + "_enc"][sel] for c in user_cols], 1),
+                "item_sparse": np.stack([df[c + "_enc"][sel] for c in item_cols], 1),
+                "label": df["label"][sel]}
+
+    return user_schema, item_schema, take(idx[:cut]), take(idx[cut:])
 
 
 def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20,

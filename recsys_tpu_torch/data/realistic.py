@@ -6,8 +6,8 @@ scale (the port's copy of ``recsys_tpu/data/realistic.py``), in numpy only:
   teacher, with the teacher's oracle AUC;
 * ``realistic_ratings``: a latent-factor interaction log at MovieLens
   scale, as a dict of columns (``user_id``, ``item_id``, ``rating``,
-  ``timestamp``) instead of a pandas DataFrame.  ``return_meta`` (the side
-  features DIN and DSSM use) comes with those models.
+  ``timestamp``) instead of a pandas DataFrame; ``return_meta`` adds the
+  side features the two-tower models use.
 
 Each draws from its generator in the JAX package's order, so the same seed
 gives the same arrays bit for bit.
@@ -145,7 +145,8 @@ def realistic_ratings(num_users: int = 100_000, num_items: int = 20_000,
                       latent_dim: int = 16, affinity_scale: float = 4.0,
                       pop_scale: float = 1.0, zipf_s: float = 1.0,
                       drift_scale: float = 6.0, user_batch: int = 1024,
-                      seed: int = 0) -> dict:
+                      seed: int = 0, return_meta: bool = False, num_cates: int = 200,
+                      num_occupations: int = 21):
     """Ratings with collaborative, popularity and sequential structure.
 
     Users and items are unit vectors; a user's items are Gumbel-top-L draws
@@ -153,7 +154,16 @@ def realistic_ratings(num_users: int = 100_000, num_items: int = 20_000,
     each user's items are ordered by a global drift projection plus noise
     (so the next item is predictable from the history) and timestamped
     0..L-1; ratings 1-5 follow the affinity quantile.  Returns int64
-    columns, users 1-based, items 1-based, one row per event."""
+    columns, users 1-based, items 1-based, one row per event.
+
+    ``return_meta=True`` returns (columns, meta): side features drawn after
+    the ratings from the same latent vectors, so they carry signal:
+    ``item_cate`` (num_items + 1,) int32 in [1, num_cates], the nearest of
+    ``num_cates`` random directions (0 the pad); ``user_age_bin`` in [1, 7],
+    ``user_gender`` in {1, 2} and ``user_occupation`` in [1,
+    num_occupations], each (num_users + 1,) int32, quantised projections of
+    the user vectors; ``num_cates`` and ``num_occupations`` as vocabulary
+    sizes (one more than the largest id)."""
     rng = np.random.default_rng(seed)
     u_vec = rng.normal(0, 1, (num_users, latent_dim))
     u_vec /= np.linalg.norm(u_vec, axis=1, keepdims=True)
@@ -192,7 +202,26 @@ def realistic_ratings(num_users: int = 100_000, num_items: int = 20_000,
             items_out.append(sel + 1)
             ratings_out.append(rating)
             ts_out.append(np.arange(n, dtype=np.int64))
-    return {"user_id": np.concatenate(users_out),
+    cols = {"user_id": np.concatenate(users_out),
             "item_id": np.concatenate(items_out).astype(np.int64),
             "rating": np.concatenate(ratings_out),
             "timestamp": np.concatenate(ts_out)}
+    if not return_meta:
+        return cols
+    cat_dirs = rng.normal(0, 1, (latent_dim, num_cates))
+    item_cate = np.zeros(num_items + 1, np.int32)
+    item_cate[1:] = np.argmax(v_vec @ cat_dirs, axis=1) + 1
+    age_proj = u_vec @ rng.normal(0, 1, latent_dim)
+    qs = np.quantile(age_proj, np.linspace(0, 1, 8)[1:-1])
+    occ_dirs = rng.normal(0, 1, (latent_dim, num_occupations))
+    meta = {
+        "item_cate": item_cate,
+        "num_cates": num_cates + 1,
+        "user_age_bin": np.concatenate([[0], np.digitize(age_proj, qs) + 1]).astype(np.int32),
+        "user_gender": np.concatenate(
+            [[0], (u_vec @ rng.normal(0, 1, latent_dim) > 0) + 1]).astype(np.int32),
+        "user_occupation": np.concatenate(
+            [[0], np.argmax(u_vec @ occ_dirs, axis=1) + 1]).astype(np.int32),
+        "num_occupations": num_occupations + 1,
+    }
+    return cols, meta

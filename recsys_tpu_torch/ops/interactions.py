@@ -1,7 +1,8 @@
 """Feature-interaction modules (the port's copy of
 ``recsys_tpu/ops/interactions.py``): the FM head, DCN's cross network,
-DeepCrossing's residual unit, the wide part's linear logit and the DLRM dot
-interaction as a module.  ``SEBlock`` comes with SENet.
+DeepCrossing's residual unit, the wide part's linear logit, SENet's
+squeeze-and-excitation over fields and the DLRM dot interaction as a
+module.
 
 Parameters keep the flax names (``w_first``, ``w{i}``/``b{i}``) or are
 ``nn.Linear``s initialised as flax's ``Dense``; ``convert`` maps the flax
@@ -84,6 +85,24 @@ class LinearLogit(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense(x)[..., 0]
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation over the field axis, (B, F, D) -> (B, F, D):
+    each field's mean over D, then ``dense0`` to ``max(1, F // reduction)``
+    with relu and ``dense1`` back to F with a sigmoid, whose (B, F)
+    weights scale the fields.  The JAX module reads F at init; here it is
+    ``num_fields``."""
+
+    def __init__(self, num_fields: int, reduction: int = 2, device=None):
+        super().__init__()
+        hidden = max(1, num_fields // reduction)
+        self.dense0 = dense_init_(nn.Linear(num_fields, hidden, device=device))
+        self.dense1 = dense_init_(nn.Linear(hidden, num_fields, device=device))
+
+    def forward(self, field_embs: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.dense0(field_embs.mean(dim=-1)))
+        return field_embs * torch.sigmoid(self.dense1(h))[..., None]
 
 
 class DotInteraction(nn.Module):

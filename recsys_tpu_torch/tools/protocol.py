@@ -1,17 +1,30 @@
-"""The CTR quality protocol on the port (the counterpart of the JAX
-package's ``python -m recsys_tpu.tools.protocol ctr``):
+"""The quality protocols on the port (the counterpart of the JAX package's
+``python -m recsys_tpu.tools.protocol``):
 
-    python -m recsys_tpu_torch.tools.protocol ctr [--rows 1000000] [--models fm,deepfm,...]
-                                                  [--device cpu] [--out report.json]
+    python -m recsys_tpu_torch.tools.protocol ctr    [--rows 1000000] [--models fm,deepfm,...]
+    python -m recsys_tpu_torch.tools.protocol sasrec [--users 100000] [--drift-scale 6.0]
+    python -m recsys_tpu_torch.tools.protocol seqret [--users 100000]   # YoutubeDNN recall@10
+    python -m recsys_tpu_torch.tools.protocol mind   [--users 100000]   # multi-interest recall@10
+    python -m recsys_tpu_torch.tools.protocol dssm   [--users 100000] [--models dssm,senet,fm_match]
+        ... [--seed 0] [--device cpu] [--out report.json]
 
-``realistic_criteo`` rows (26 Zipfian fields at the Criteo vocabularies, 13
-dense features), an 80/20 split by one permutation from the seed, 10% of
-train held out for validation, Adam at 1e-3, batch 512, up to 10 epochs
-with early stopping on the validation loss (patience 1, best weights
-restored), then test AUC, also as a share of the generator's oracle margin.
-It prints one JSON object, the JAX report's keys plus each model's
-``fit_examples_per_s`` (examples trained per second of ``fit``, the
-validation passes included).  Only the ``ctr`` mode is ported.
+``ctr``: ``realistic_criteo`` rows (26 Zipfian fields at the Criteo
+vocabularies, 13 dense features), an 80/20 split by one permutation from
+the seed, 10% of train held out for validation, Adam at 1e-3, batch 512, up
+to 10 epochs with early stopping on the validation loss (patience 1, best
+weights restored), then test AUC, also as a share of the generator's oracle
+margin.  The sequence modes run on ``realistic_ratings`` (100,000 users,
+20,000 items): ``sasrec`` leave-last-2 with 20 test negatives, all-position
+training, HR@10 and NDCG@10; ``seqret`` (YoutubeDNN) and ``mind`` the
+next-item retrieval protocol with the logQ-corrected in-batch softmax and
+recall@10 over the whole catalog; ``dssm`` the two towers (DSSM and SENet
+with the in-batch softmax on positives, FM-match with BCE on rated pairs)
+with the side features of ``return_meta`` and recall@10 of each user's
+last item.  Each mode takes the JAX runner's batch size and epochs unless
+given, and prints one JSON object: the JAX report's keys plus
+``fit_examples_per_s`` (examples trained per second of ``fit``), a model's
+in ``ctr`` and ``dssm``.  The modes ``ncf``, ``din``, ``multitask`` and
+``census`` are not ported yet (ROADMAP.md Queue 1 items 6-8).
 """
 from __future__ import annotations
 
@@ -24,7 +37,10 @@ import time
 import numpy as np
 import torch
 
-from recsys_tpu_torch.data.realistic import realistic_criteo
+from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature, VarLenSparseFeature
+from recsys_tpu_torch.data.movielens import build_sasrec_dataset, build_seq_retrieval_dataset
+from recsys_tpu_torch.data.realistic import realistic_criteo, realistic_ratings
+from recsys_tpu_torch.kernels import build, default_device
 from recsys_tpu_torch.models.ctr.autoint import AutoInt
 from recsys_tpu_torch.models.ctr.dcn import DCN
 from recsys_tpu_torch.models.ctr.deep_crossing import DeepCrossing
@@ -32,11 +48,26 @@ from recsys_tpu_torch.models.ctr.deepfm import DeepFM
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.models.ctr.fm import FM
 from recsys_tpu_torch.models.ctr.wide_deep import WideDeep
+from recsys_tpu_torch.models.match.fm_match import FMMatch
+from recsys_tpu_torch.models.match.mind import MIND
+from recsys_tpu_torch.models.match.sasrec import SASRec
+from recsys_tpu_torch.models.match.two_tower import TwoTower
+from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.train import losses
 from recsys_tpu_torch.train.loop import Trainer
+from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
+from recsys_tpu_torch.train.retrieval import topk_scores
 
 CTR_MODELS = {"fm": FM, "deepfm": DeepFM, "widedeep": WideDeep,
               "deepcrossing": DeepCrossing, "dcn": DCN, "dlrm": DLRM, "autoint": AutoInt}
 DEFAULT_CTR_MODELS = "fm,deepfm,widedeep,deepcrossing,dcn,dlrm,autoint"
+DEFAULT_DSSM_MODELS = "dssm,senet,fm_match"
+# mode: (batch size, epochs) when not given, as the JAX runner's main
+MODE_DEFAULTS = {"ctr": (512, 10), "sasrec": (256, 5), "seqret": (1024, 5),
+                 "mind": (1024, 5), "dssm": (2048, 4)}
+# the JAX runner's modes the port has not taken yet, and the ROADMAP item of each
+NOT_PORTED = {"ncf": "Queue 1 item 6", "din": "Queue 1 item 7",
+              "multitask": "Queue 1 item 8", "census": "Queue 1 item 8"}
 
 
 def _log(msg: str) -> None:
@@ -114,30 +145,326 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
     return out
 
 
+def _warm_kernels(device) -> None:
+    """Build the kernels before a timed fit, so nvcc stays out of
+    ``fit_examples_per_s``."""
+    if default_device(device).type == "cuda":
+        build.libraries()
+
+
+def _timed_fit(tr: Trainer, train: dict, batch_size: int, epochs: int, **kw):
+    """``tr.fit``; returns (history, examples trained per second of fit)."""
+    t0 = time.time()
+    hist = tr.fit(train, batch_size=batch_size, epochs=epochs, **kw)
+    n = len(next(iter(train.values())))
+    b = min(batch_size, n)
+    return hist, round(len(hist["loss"]) * (n - n % b) / (time.time() - t0), 1)
+
+
+def run_sasrec(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
+               batch_size: int = 256, epochs: int = 5, seed: int = 0,
+               drift_scale: float = 6.0, device=None) -> dict:
+    """SASRec leave-last-2 with 20 test negatives, all-position training
+    with pairwise BCE, HR@10 and NDCG@10 of the last item."""
+    t0 = time.time()
+    ratings = realistic_ratings(num_users=users, num_items=items, seed=seed,
+                                drift_scale=drift_scale)
+    ni, train, _, test = build_sasrec_dataset(ratings, maxlen=maxlen, test_neg_num=20,
+                                              all_positions=True)
+    _log(f"built {len(train['hist'])} train sequences / {ni} items in {time.time() - t0:.1f}s")
+    _warm_kernels(device)
+    torch.manual_seed(seed)
+    model = SASRec(num_items=ni, embed_dim=64, max_len=maxlen)
+
+    def loss_fn(out, batch):
+        return losses.pairwise_bce(out["pos_logits"], out["neg_logits"], mask=out.get("mask"))
+
+    tr = Trainer(model, loss_fn=loss_fn, learning_rate=1e-3, device=device)
+    _, rate = _timed_fit(tr, train, batch_size, epochs, verbose=True)
+    out = tr.predict(test)
+    hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
+    return {"users": users, "items": ni, "maxlen": maxlen, "drift_scale": drift_scale,
+            "HR@10": round(hr, 4), "NDCG@10": round(ndcg, 4),
+            "random_HR@10": round(10 / 21, 4), "fit_examples_per_s": rate}
+
+
+def logq_softmax(log_q: torch.Tensor | None):
+    """The retrieval models' loss: the in-batch sampled softmax of their
+    {'user', 'item'} outputs, corrected by ``log_q[batch['item_id']]``
+    (uncorrected when ``log_q`` is None)."""
+    def loss_fn(out, batch):
+        lq = None if log_q is None else log_q[batch["item_id"].long()]
+        return losses.in_batch_sampled_softmax(out["user"], out["item"], item_log_q=lq)
+    return loss_fn
+
+
+def _retrieval_data(users: int, items: int, maxlen: int, seed: int):
+    t0 = time.time()
+    ratings = realistic_ratings(num_users=users, num_items=items, seed=seed)
+    ni, train, test = build_seq_retrieval_dataset(ratings, maxlen=maxlen)
+    _log(f"built {len(train['hist'])} train rows / {ni} items in {time.time() - t0:.1f}s")
+    return ni, train, test
+
+
+def run_seqret(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
+               batch_size: int = 1024, epochs: int = 5, seed: int = 0, device=None) -> dict:
+    """YoutubeDNN next-item retrieval: the logQ-corrected in-batch softmax,
+    then recall@10 over the whole catalog in 8192-user blocks (top-k
+    kernel)."""
+    ni, train, test = _retrieval_data(users, items, maxlen, seed)
+    _warm_kernels(device)
+    torch.manual_seed(seed)
+    schema = FeatureSchema(varlen=[VarLenSparseFeature("hist_item", ni, 32, max_len=maxlen)])
+    model = YoutubeDNN(schema, num_items=ni, embed_dim=32)
+    dev = default_device(device)
+    log_q = losses.popularity_log_q(np.bincount(train["item_id"], minlength=ni)).to(dev)
+    tr = Trainer(model, loss_fn=logq_softmax(log_q), learning_rate=1e-3, device=dev)
+    _, rate = _timed_fit(tr, train, batch_size, epochs, verbose=True)
+    model.eval()
+    hits = []
+    with torch.inference_mode():
+        item_embs = model.all_item_embeddings()
+        for s in range(0, len(test["item_id"]), 8192):
+            u = model.user_embed({"hist": torch.from_numpy(test["hist"][s:s + 8192]).to(dev)})
+            hits.append(topk_scores(u, item_embs, k=10)[1].cpu().numpy())
+    r = recall_at_k(np.concatenate(hits), test["item_id"])
+    return {"users": users, "items": ni, "recall@10": round(r, 4),
+            "random_recall@10": round(10 / ni, 5), "fit_examples_per_s": rate}
+
+
+def merge_capsule_topk(values: np.ndarray, ids: np.ndarray, k: int) -> np.ndarray:
+    """Each user's K capsules' top-k lists, (B, K·k) values and ids, merged
+    into the k best distinct items: descending by value (a stable sort, so
+    equal values keep their capsule order), each item at its first
+    occurrence, padded with -1 where fewer than k are distinct.  Returns
+    (B, k) int64.  Vectorised; the JAX runner loops over the rows."""
+    order = np.argsort(-values, axis=1, kind="mergesort")
+    ranked = np.take_along_axis(ids, order, 1).astype(np.int64)
+    by_id = np.argsort(ranked, axis=1, kind="stable")  # earlier rank first
+    sorted_ids = np.take_along_axis(ranked, by_id, 1)
+    first_sorted = np.ones(ranked.shape, bool)
+    first_sorted[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+    first = np.zeros(ranked.shape, bool)
+    np.put_along_axis(first, by_id, first_sorted, 1)
+    slot = np.cumsum(first, axis=1) - 1  # place among the distinct items
+    keep = first & (slot < k)
+    merged = np.full((ranked.shape[0], k), -1, np.int64)
+    rows, cols = np.nonzero(keep)
+    merged[rows, slot[rows, cols]] = ranked[rows, cols]
+    return merged
+
+
+MIND_BLOCK = 4096  # users a serving block of run_mind: 16,384 capsule queries
+TOWER_BLOCK = 8192  # users (and catalog rows) a block of run_dssm
+
+
+def mind_block_topk(model, hist: np.ndarray, item_embs: torch.Tensor, k: int = 10):
+    """One serving block of ``run_mind``: the capsules of the (B, L) ``hist``
+    ids, each capsule's top-k over ``item_embs`` (the top-k kernel on a card)
+    and their merge.  Returns (queries (B·K, D), values, catalog rows, the
+    merged (B, k) ids)."""
+    caps = model.interests({"hist": torch.from_numpy(hist).to(item_embs.device)})
+    b, km, d = caps.shape
+    q = caps.reshape(b * km, d)
+    v, i = topk_scores(q, item_embs, k=k)
+    return q, v, i, merge_capsule_topk(v.cpu().numpy().reshape(b, km * k),
+                                       i.cpu().numpy().reshape(b, km * k), k)
+
+
+def run_mind(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
+             batch_size: int = 1024, epochs: int = 5, seed: int = 0, device=None) -> dict:
+    """MIND multi-interest retrieval: the logQ-corrected in-batch softmax,
+    then each capsule's top-10 over the whole catalog (top-k kernel on the
+    (B·K, D) capsules, 4096 users a block), merged into 10 distinct items a
+    user, and recall@10."""
+    ni, train, test = _retrieval_data(users, items, maxlen, seed)
+    _warm_kernels(device)
+    torch.manual_seed(seed)
+    model = MIND(num_items=ni, embed_dim=32, k_max=4)
+    dev = default_device(device)
+    log_q = losses.popularity_log_q(np.bincount(train["item_id"], minlength=ni)).to(dev)
+    tr = Trainer(model, loss_fn=logq_softmax(log_q), learning_rate=1e-3, device=dev)
+    _, rate = _timed_fit(tr, train, batch_size, epochs, verbose=True)
+    model.eval()
+    with torch.inference_mode():
+        item_embs = model.all_item_embeddings()
+        hits = [mind_block_topk(model, test["hist"][s:s + MIND_BLOCK], item_embs)[3]
+                for s in range(0, len(test["item_id"]), MIND_BLOCK)]
+    r = recall_at_k(np.concatenate(hits), test["item_id"])
+    return {"users": users, "items": ni, "k_max": 4, "recall@10": round(r, 4),
+            "random_recall@10": round(10 / ni, 5), "fit_examples_per_s": rate}
+
+
+def dssm_user_feats(meta: dict, user_ids: np.ndarray) -> np.ndarray:
+    """(B, 4) int32 user fields: id, age bin, gender, occupation."""
+    return np.stack([user_ids.astype(np.int32), meta["user_age_bin"][user_ids],
+                     meta["user_gender"][user_ids], meta["user_occupation"][user_ids]],
+                    axis=1).astype(np.int32)
+
+
+def dssm_item_feats(meta: dict, item_ids: np.ndarray) -> np.ndarray:
+    """(B, 2) int32 item fields: id, category."""
+    return np.stack([item_ids.astype(np.int32), meta["item_cate"][item_ids]],
+                    axis=1).astype(np.int32)
+
+
+def dssm_data(ratings: dict, meta: dict, items: int) -> dict:
+    """The ``dssm`` protocol's arrays from ``realistic_ratings(...,
+    return_meta=True)``: events stably sorted by (user, timestamp); each
+    user's last event held out, a test pair where its rating is 3 or more;
+    the rest train FM-match on rating >= 3 labels (``bce_train``) and the
+    towers on their positives (``pair_train``, with ``pair_counts``, the
+    positives' item counts for logQ); ``catalog`` holds items 1..items."""
+    order = np.lexsort((ratings["timestamp"], ratings["user_id"]))  # stable
+    u = np.asarray(ratings["user_id"])[order]
+    i = np.asarray(ratings["item_id"])[order].astype(np.int32)
+    rat = np.asarray(ratings["rating"])[order]
+    uniq, starts, counts = np.unique(u, return_index=True, return_counts=True)
+    last = starts + counts - 1
+    is_last = np.zeros(len(u), bool)
+    is_last[last] = True
+    label = (rat >= 3).astype(np.float32)  # the reference's label threshold
+    tr_mask = ~is_last
+    test_ok = label[last] > 0  # a held-out item must pass the threshold
+    pos = tr_mask & (label > 0)
+    user_schema = FeatureSchema(sparse=[
+        SparseFeature("user_id", int(u.max()) + 1, 16),
+        SparseFeature("age_bin", 9, 16),
+        SparseFeature("gender", 3, 16),
+        SparseFeature("occupation", meta["num_occupations"], 16),
+    ])
+    item_schema = FeatureSchema(sparse=[
+        SparseFeature("item_id", items + 1, 16),
+        SparseFeature("cate", meta["num_cates"], 16),
+    ])
+    return {
+        "user_schema": user_schema, "item_schema": item_schema,
+        "bce_train": {"user_sparse": dssm_user_feats(meta, u[tr_mask]),
+                      "item_sparse": dssm_item_feats(meta, i[tr_mask]),
+                      "label": label[tr_mask]},
+        "pair_train": {"user_sparse": dssm_user_feats(meta, u[pos]),
+                       "item_sparse": dssm_item_feats(meta, i[pos]),
+                       "item_id": i[pos].astype(np.int32)},
+        "pair_counts": np.bincount(i[pos], minlength=items + 1),
+        "test_users": uniq[test_ok], "test_items": i[last][test_ok],
+        "catalog": dssm_item_feats(meta, np.arange(1, items + 1)),
+    }
+
+
+def tower_item_embeddings(model, catalog: np.ndarray, device) -> torch.Tensor:
+    """The item tower over the (N, fields) ``catalog`` in TOWER_BLOCK rows."""
+    return torch.cat([model.item_embed({"item_sparse": torch.from_numpy(
+        catalog[s:s + TOWER_BLOCK]).to(device)}) for s in range(0, len(catalog), TOWER_BLOCK)])
+
+
+def tower_block_topk(model, meta: dict, users: np.ndarray, item_embs: torch.Tensor,
+                     k: int = 10):
+    """One serving block of ``run_dssm``: the user tower on ``users``' side
+    features and its top-k over ``item_embs`` (the catalog of items
+    1..items; the top-k kernel on a card).  Returns (queries, values,
+    catalog rows, item ids = rows + 1)."""
+    q = model.user_embed({"user_sparse": torch.from_numpy(
+        dssm_user_feats(meta, users)).to(item_embs.device)})
+    v, i = topk_scores(q, item_embs, k=k)
+    return q, v, i, i.cpu().numpy() + 1
+
+
+def run_dssm(users: int = 100_000, items: int = 20_000,
+             models=tuple(DEFAULT_DSSM_MODELS.split(",")), batch_size: int = 2048,
+             epochs: int = 4, seed: int = 0, device=None) -> dict:
+    """Two-tower retrieval with side features: DSSM and SENet-DSSM trained
+    with the logQ-corrected in-batch softmax on positives, FM-match with
+    BCE on rated pairs (label rating >= 3); recall@10 of each test user's
+    last item over the whole catalog (top-k kernel, 8192 users a block)."""
+    t0 = time.time()
+    ratings, meta = realistic_ratings(num_users=users, num_items=items, seed=seed,
+                                      return_meta=True)
+    data = dssm_data(ratings, meta, items)
+    _log(f"built {len(data['bce_train']['label'])} train rows / "
+         f"{len(data['test_users'])} test users in {time.time() - t0:.1f}s")
+    _warm_kernels(device)
+    dev = default_device(device)
+    out = {"users": users, "items": items, "random_recall@10": round(10 / items, 5),
+           "models": {}}
+    for name in models:
+        t0 = time.time()
+        torch.manual_seed(seed)
+        if name == "fm_match":
+            model = FMMatch(data["user_schema"], data["item_schema"])
+            train = data["bce_train"]
+            tr = Trainer(model, learning_rate=1e-3, device=dev)
+        else:
+            model = TwoTower(data["user_schema"], data["item_schema"], out_dim=32,
+                             use_senet=(name == "senet"), output_mode="pair")
+            train = data["pair_train"]
+            log_q = losses.popularity_log_q(data["pair_counts"]).to(dev)
+            tr = Trainer(model, loss_fn=logq_softmax(log_q), learning_rate=1e-3, device=dev)
+        _, rate = _timed_fit(tr, train, batch_size, epochs, verbose=False)
+        model.eval()
+        with torch.inference_mode():
+            item_embs = tower_item_embeddings(model, data["catalog"], dev)
+            tu = data["test_users"]
+            hits = [tower_block_topk(model, meta, tu[s:s + TOWER_BLOCK], item_embs)[3]
+                    for s in range(0, len(tu), TOWER_BLOCK)]
+        r = recall_at_k(np.concatenate(hits), data["test_items"])
+        out["models"][name] = {"recall@10": round(r, 4),
+                               "seconds": round(time.time() - t0, 1),
+                               "fit_examples_per_s": rate}
+        _log(f"{name}: recall@10 {r:.4f}")
+        del tr
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="recsys_tpu_torch.tools.protocol")
-    p.add_argument("mode", choices=["ctr"])
-    p.add_argument("--rows", type=int, default=1_000_000)
-    p.add_argument("--models", default=DEFAULT_CTR_MODELS)
+    p.add_argument("mode", help=f"one of {', '.join(MODE_DEFAULTS)}")
+    p.add_argument("--rows", type=int, default=1_000_000, help="ctr rows")
+    p.add_argument("--users", type=int, default=100_000)
+    p.add_argument("--items", type=int, default=20_000)
+    p.add_argument("--models", default=None,
+                   help=f"ctr: {DEFAULT_CTR_MODELS}; dssm: {DEFAULT_DSSM_MODELS}")
     p.add_argument("--embed-dim", type=int, default=16)
-    p.add_argument("--batch-size", type=int, default=512)
-    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch-size", type=int, default=0, help="0: the mode's default")
+    p.add_argument("--epochs", type=int, default=0, help="0: the mode's default")
+    p.add_argument("--maxlen", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--patience", type=int, default=1,
-                   help="early-stopping patience; 0 lifts early stopping")
+                   help="early-stopping patience (ctr); 0 lifts early stopping")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--teacher", default="fm", choices=["fm", "mlp"])
     p.add_argument("--embedding-optimizer", default=None,
                    choices=["fused_adam", "fused_rowwise_adagrad"])
+    p.add_argument("--drift-scale", type=float, default=6.0,
+                   help="sasrec generator's sequence drift; 2.0 does not saturate HR@10")
     p.add_argument("--device", default=None, help="default: the card")
     p.add_argument("--out", default=None, help="also write the JSON report here")
     args = p.parse_args(argv)
+    if args.mode in NOT_PORTED:
+        p.error(f"mode {args.mode!r} is not ported yet (ROADMAP.md {NOT_PORTED[args.mode]})")
+    if args.mode not in MODE_DEFAULTS:
+        p.error(f"unknown mode {args.mode!r}: choose from {', '.join(MODE_DEFAULTS)}")
     if args.rows <= 0:
         p.error(f"--rows must be positive, got {args.rows}")
-    rep = run_ctr(args.rows, args.models.split(","), args.embed_dim, args.batch_size,
-                  args.epochs, args.seed, patience=args.patience or None, lr=args.lr,
-                  embedding_optimizer=args.embedding_optimizer, teacher=args.teacher,
-                  device=args.device)
+    batch_size = args.batch_size or MODE_DEFAULTS[args.mode][0]
+    epochs = args.epochs or MODE_DEFAULTS[args.mode][1]
+    if args.mode == "ctr":
+        rep = run_ctr(args.rows, (args.models or DEFAULT_CTR_MODELS).split(","),
+                      args.embed_dim, batch_size, epochs, args.seed,
+                      patience=args.patience or None, lr=args.lr,
+                      embedding_optimizer=args.embedding_optimizer, teacher=args.teacher,
+                      device=args.device)
+    elif args.mode == "sasrec":
+        rep = run_sasrec(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+                         drift_scale=args.drift_scale, device=args.device)
+    elif args.mode == "seqret":
+        rep = run_seqret(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+                         device=args.device)
+    elif args.mode == "mind":
+        rep = run_mind(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+                       device=args.device)
+    else:
+        rep = run_dssm(args.users, args.items, (args.models or DEFAULT_DSSM_MODELS).split(","),
+                       batch_size, epochs, args.seed, device=args.device)
     rep["mode"] = args.mode
     payload = json.dumps(rep)
     if args.out:

@@ -81,12 +81,14 @@ class Trainer:
         self.embedding_fused_bf16 = embedding_fused_bf16
         self.step = 0  # optimizer steps taken; the next one is step + 1
         self._shuffle_rng = np.random.default_rng(seed)
-        schema = getattr(model, "schema", None)
-        self._vocab = (
-            np.asarray([f.vocab_size for f in schema.sparse])
-            if schema is not None and schema.sparse else None
-        )
-        self._sparse_key = getattr(model, "sparse_key", "sparse")  # the schema's ids
+        # {batch key: its fields' vocabularies}: a model's ``schema`` serves
+        # ``sparse_key`` (default 'sparse'); a two-tower model names a schema
+        # a key in ``sparse_schemas``
+        schemas = getattr(model, "sparse_schemas", None)
+        if schemas is None and getattr(model, "schema", None) is not None:
+            schemas = {getattr(model, "sparse_key", "sparse"): model.schema}
+        self._vocabs = {key: np.asarray([f.vocab_size for f in s.sparse])
+                        for key, s in (schemas or {}).items() if s.sparse}
         # item-id inputs of a sequence or retrieval model (SASRec,
         # YoutubeDNN): each must index its item table; the JAX package's
         # gather clamps, a device gather faults
@@ -139,10 +141,10 @@ class Trainer:
             if pad > 0:
                 batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                          for k, v in batch.items()}
-            if self._vocab is not None and self._sparse_key in batch:
+            for key, vocab in self._vocabs.items():
                 # an id outside its table would fault the device gather
-                ids = batch[self._sparse_key]
-                if (ids < 0).any() or (ids >= self._vocab).any():
+                ids = batch.get(key)
+                if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
                     raise ValueError(f"sparse ids outside their vocabularies "
                                      f"in rows {s}..{s + valid}")
             for key, vocab in self._item_ids.items():

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the same inputs (the probe kernels bit for bit, probe_check.py), a small DLRM, SASRec, YoutubeDNN and the CTR
+version on the same inputs (the probe kernels bit for bit, probe_check.py), a small DLRM, SASRec, YoutubeDNN, MIND,
+the two towers, FM-match and the CTR
 protocol models served on the card against the same model on the CPU, and
 one training step of each on the card against the same step on the CPU.  They skip inside a fixture
 when there is no card.
@@ -21,7 +22,7 @@ import flash_check
 import mlp_bwd_check
 import probe_check
 import retrieval_check
-from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
+from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature, VarLenSparseFeature
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.kernels import attention as attn
 from recsys_tpu_torch.kernels import build, dispatch
@@ -32,7 +33,10 @@ from recsys_tpu_torch.kernels import topk as topk_ref
 from recsys_tpu_torch.kernels.interactions import dot_interaction
 from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
+from recsys_tpu_torch.models.match.fm_match import FMMatch
+from recsys_tpu_torch.models.match.mind import MIND
 from recsys_tpu_torch.models.match.sasrec import SASRec
+from recsys_tpu_torch.models.match.two_tower import TwoTower
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
 from recsys_tpu_torch.ops.attention import MultiHeadAttention
 from recsys_tpu_torch.ops.interactions import DotInteraction
@@ -1022,6 +1026,128 @@ def test_youtube_train_step_on_card_matches_cpu(cuda):
         # a first Adam step moves a cell by about lr·sign(g): a g within the
         # sum order's noise of zero may move the other way
         assert ((got_sd[name].cpu() - w).abs() > 1e-5).float().mean() < 1e-3, name
+
+
+# -- MIND, the two towers and FM-match -------------------------------------------
+def _launched(**counts) -> dict:
+    return {**dict.fromkeys(dispatch.LAUNCHES, 0), **counts}
+
+
+def _mind(num_items):
+    torch.manual_seed(0)
+    return MIND(num_items, embed_dim=32, k_max=4, user_units=(64,))
+
+
+def test_mind_retrieval_on_card_matches_cpu(cuda):
+    data = _youtube_batch(np.random.default_rng(19), 600, 50, 5000)
+    model = _mind(5000).eval()
+    hist = torch.from_numpy(data["hist"])
+    with torch.no_grad():
+        want_caps = model.interests({"hist": hist})
+        want = topk_scores(want_caps.reshape(-1, 32), model.all_item_embeddings(), k=10)
+        card = copy.deepcopy(model).to(cuda)
+        dispatch.reset_launches()
+        got_caps = card.interests({"hist": hist.to(cuda)})
+        got = topk_scores(got_caps.reshape(-1, 32), card.all_item_embeddings(), k=10)
+        torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched(topk_scores=1)
+    torch.testing.assert_close(got_caps.cpu(), want_caps, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    assert (got[1].cpu() == want[1]).double().mean() > 0.99
+
+
+def _share_off(got_sd, want_sd, lr=1e-3) -> float:
+    """The share of the model's cells more than 1e-5 from the CPU step's;
+    every cell within Adam's first step of 2·lr (a gradient within the sum
+    order's noise of zero, or exactly zero as the in-batch softmax leaves
+    the item tower's last bias, may move its cell the other way)."""
+    off = total = 0
+    for name, w in want_sd.items():
+        diff = (got_sd[name].cpu() - w).abs()
+        assert float(diff.max()) <= 2 * lr * 1.001, name
+        off += int((diff > 1e-5).sum())
+        total += diff.numel()
+    return off / total
+
+
+def test_mind_train_step_on_card_matches_cpu(cuda):
+    batch = _youtube_batch(np.random.default_rng(20), 512, 50, 2000)
+    model = _mind(2000)
+    cpu = Trainer(copy.deepcopy(model), loss_fn=_youtube_loss, device="cpu")
+    card = Trainer(model, loss_fn=_youtube_loss)
+    dispatch.reset_launches()
+    loss = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched()
+    torch.testing.assert_close(loss.cpu(), cpu.train_step(batch), rtol=1e-5, atol=1e-6)
+    assert _share_off(card.model.state_dict(), cpu.model.state_dict()) < 1e-3
+
+
+def _tower_schemas():
+    user = FeatureSchema(sparse=[SparseFeature("user_id", 3000, 16),
+                                 SparseFeature("age_bin", 9, 16),
+                                 SparseFeature("gender", 3, 16),
+                                 SparseFeature("occupation", 22, 16)])
+    item = FeatureSchema(sparse=[SparseFeature("item_id", 2001, 16),
+                                 SparseFeature("cate", 201, 16)])
+    return user, item
+
+
+def _tower_batch(rng, n):
+    user, item = _tower_schemas()
+    return {"user_sparse": np.stack([rng.integers(0, f.vocab_size, n) for f in user.sparse],
+                                    1).astype(np.int32),
+            "item_sparse": np.stack([rng.integers(0, f.vocab_size, n) for f in item.sparse],
+                                    1).astype(np.int32),
+            "label": (rng.random(n) < 0.4).astype(np.float32)}
+
+
+def _tower_model(name):
+    torch.manual_seed(0)
+    if name == "fm_match":
+        return FMMatch(*_tower_schemas())
+    return TwoTower(*_tower_schemas(), out_dim=32, use_senet=name == "senet",
+                    output_mode="pair")
+
+
+@pytest.mark.parametrize("name", ["dssm", "senet", "fm_match"])
+def test_tower_retrieval_on_card_matches_cpu(cuda, name):
+    model = _tower_model(name).eval()
+    batch = {k: torch.from_numpy(v) for k, v in _tower_batch(np.random.default_rng(21),
+                                                             600).items()}
+    catalog = {"item_sparse": torch.from_numpy(np.stack(
+        [np.arange(1, 2001), np.random.default_rng(22).integers(1, 201, 2000)], 1).astype(
+        np.int32))}
+    with torch.no_grad():
+        want_u, want_items = model.user_embed(batch), model.item_embed(catalog)
+        want = topk_scores(want_u, want_items, k=10)
+        card = copy.deepcopy(model).to(cuda)
+        dispatch.reset_launches()
+        got_u = card.user_embed({k: v.to(cuda) for k, v in batch.items()})
+        got = topk_scores(got_u, card.item_embed({k: v.to(cuda) for k, v in catalog.items()}),
+                          k=10)
+        torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched(topk_scores=1)
+    torch.testing.assert_close(got_u.cpu(), want_u, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    assert (got[1].cpu() == want[1]).double().mean() > 0.99
+
+
+@pytest.mark.parametrize("name", ["dssm", "senet", "fm_match"])
+def test_tower_train_step_on_card_matches_cpu(cuda, name):
+    batch = _tower_batch(np.random.default_rng(23), 2048)
+    batch["item_id"] = batch["item_sparse"][:, 0].copy()
+    model = _tower_model(name)
+    kw = {} if name == "fm_match" else {"loss_fn": _youtube_loss}
+    cpu = Trainer(copy.deepcopy(model), device="cpu", **kw)
+    card = Trainer(model, **kw)
+    dispatch.reset_launches()
+    loss = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched(
+        **({"fm_pairwise_vector": 1} if name == "fm_match" else {}))
+    torch.testing.assert_close(loss.cpu(), cpu.train_step(batch), rtol=1e-5, atol=1e-6)
+    assert _share_off(card.model.state_dict(), cpu.model.state_dict()) < 1e-2
 
 
 # -- FM bi-interaction and the CTR protocol models ----------------------------
