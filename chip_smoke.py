@@ -132,6 +132,17 @@ checkout.  Phases, one JSON line each:
                 held against its plain version on one batch), then top-10 in
                 8192-user blocks through the top-k kernel, every launch held
                 against the plain top-k, and recall@10.
+16d. ncf     -- NCF at protocol ncf's widths (tables 32 wide, MLP 64-32-16)
+                on the same ratings (20,000 users): one epoch of fit at 1024
+                rows with the ranked HR@10 as its eval_fn, a 101-candidate
+                request of 1024 users on the card against the CPU, one more
+                step against the CPU step, request time.
+16e. din     -- DIN with PReLU and with Dice at protocol din's widths
+                (maxlen 40, 12 train positions a user, D = 8, FFN 80-40) on
+                the same ratings and categories: one epoch with the val
+                split, evaluate_auc, a request against the CPU and one more
+                step against the CPU step, the BatchNorm statistics within
+                1e-5.  Neither model launches a kernel (counted).
 17. ctr check -- the FM bi-interaction kernel against its plain version
                 (ctr_check.py): F = 1, 2, 26, 39, 70 fields, D = 1, 8, 16, 32,
                 36, B = 0, 1, 513, 4096, f32 and bf16, and large nearly
@@ -175,12 +186,24 @@ checkout.  Phases, one JSON line each:
                 launch floor (an empty kernel at its grid, launch_floor_ms).
 24b. cli     -- python -m recsys_tpu_torch.cli at the JAX CLI's fixture
                 sizes: ctr --model fm (1 epoch), youtube, mind and match
-                --model dssm, senet, fm (2 epochs each); each prints its
-                result line and launches exactly what its path holds.
+                --model dssm, senet, fm, ncf and din (2 epochs each),
+                multitask --model esmm, mmoe, ple and mmoe --census on
+                files written there (1 epoch each); each prints its result
+                line and launches exactly what its path holds.
 24c. protocol seq -- the protocol runner's sasrec (drift 2.0), seqret, mind
                 and dssm modes at full widths, users cut to 20,000, one epoch
                 each: each prints its JSON line, launches the kernels of its
                 path and no other, and reports metrics in [0, 1].
+24d. multitask -- ESMM, MMoE and PLE at protocol multitask's widths on
+                200,000 realistic_multitask rows, one epoch each, head AUCs,
+                a request and one more step against the CPU; MMoE and PLE on
+                census rows (20,000 train) through the CSV files and the
+                loader; no kernel launched.
+24e. protocol mt -- the runner's ncf and din (5,000 users; ncf 2 epochs, din
+                1), multitask (100,000 rows) and census (20,000 rows) modes,
+                1 epoch: each prints its JSON line, launches no kernel and
+                reports metrics in [0, 1].  A line gives the seconds of
+                16d, 16e, 24d, 24e and the new cli tasks.
 25. kernels  -- the total time, then one line naming every kernel with its
                 launches and times.
 
@@ -1771,12 +1794,19 @@ RECALL_LINE = r"recall@10: ([0-9.]+) over (\d+) items \(random ([0-9.]+)\)"
 def phase_cli(dev) -> dict:
     """The other ported ``python -m recsys_tpu_torch.cli`` tasks on the card
     at the JAX CLI's fixture sizes (synthetic ratings of 300 users and 150
-    items, 20,000 synthetic CTR rows): ctr (FM, 1 epoch), youtube, mind and
-    match (dssm, senet, fm), 2 epochs each; each prints its result line and
-    launches exactly what its path holds.  {task: result}."""
+    items, 20,000 synthetic CTR rows, synthetic reviews, 20,000 multi-task
+    rows): ctr (FM, 1 epoch), youtube, mind, match (dssm, senet, fm), ncf
+    and din, 2 epochs each; multitask (esmm, mmoe, ple, and mmoe on census
+    files of 3,000 + 1,000 rows written here), 1 epoch each; each prints
+    its result line and launches exactly what its path holds (the last
+    slice's tasks nothing).  {task: result}."""
+    import tempfile
+
+    from recsys_tpu_torch.data import census
     from recsys_tpu_torch.data.movielens import (build_ml100k_arrays,
                                                  build_seq_retrieval_dataset, synthetic_ratings,
                                                  synthetic_user_item_frames)
+    from recsys_tpu_torch.data.realistic import realistic_census
 
     out = {}
     # ctr fm: 14,400 training rows in 512s, 1,600 validation rows, then the
@@ -1803,10 +1833,27 @@ def phase_cli(dev) -> dict:
             ["match", "--model", model, "--epochs", "2"],
             {"topk_scores": 1, **({"fm_pairwise_vector": fm_forwards} if model == "fm" else {})},
             f"cli match --model {model}")
+    # the last slice's tasks launch no kernel; multitask --census reads files
+    # written here
+    out["ncf"] = cli_run(["ncf", "--epochs", "2"], {}, "cli ncf")
+    out["din"] = cli_run(["din", "--epochs", "2"], {}, "cli din")
+    for model in ("esmm", "mmoe", "ple"):
+        out[f"multitask {model}"] = cli_run(["multitask", "--model", model, "--epochs", "1"],
+                                            {}, f"cli multitask --model {model}")
+    with tempfile.TemporaryDirectory(prefix="census_") as tmp:
+        paths = [f"{tmp}/census.data", f"{tmp}/census.test"]
+        for path, cols in zip(paths, realistic_census(num_train=3000, num_test=1000, seed=0)):
+            census.write_columns(path, cols)
+        out["multitask census"] = cli_run(["multitask", "--model", "mmoe", "--epochs", "1",
+                                           "--census", *paths], {},
+                                          "cli multitask --model mmoe --census")
+    lines = {"ctr": r"test AUC: ([0-9.]+)", "din": r"test AUC: ([0-9.]+)",
+             "ncf": r"epoch 2/2 loss=[0-9.]+ HR@10=([0-9.]+) NDCG@10=[0-9.]+"}
     for task, res in out.items():
         line = res["line"]
-        ok = (re.fullmatch(r"test AUC: ([0-9.]+)", line) if task == "ctr"
-              else re.fullmatch(RECALL_LINE, line))
+        pattern = lines.get(task, r"\w+ AUC: ([0-9.]+)" if task.startswith("multitask")
+                            else RECALL_LINE)
+        ok = re.fullmatch(pattern, line)
         if not ok or not 0.0 <= float(ok.group(1)) <= 1.0:
             raise AssertionError(f"cli {task}: result line {line!r}")
     emit({"phase": "cli", "tasks": {k: {"loss": v["result"]["loss"],
@@ -2618,6 +2665,321 @@ def phase_protocol_seq(dev) -> dict:
     return out
 
 
+NCF_BATCH = 1024         # protocol ncf's batch
+NCF_REQUEST = 1024       # test users a ranked request, each with 100 negatives
+DIN_BATCH = 1024         # protocol din's batch and history length
+DIN_MAXLEN = 40
+MT_ROWS = 200_000        # protocol multitask's 1,000,000 rows, cut
+MT_BATCH = 512
+CENSUS_ROWS = 20_000     # protocol census's 200,000 train rows, cut
+SLICE_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 on both sides, TF32 off
+
+
+def timed(fn, *args) -> tuple:
+    """(fn(*args), its wall seconds)."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def no_launches(label: str, launches: dict) -> None:
+    """Raise unless ``launches`` counts no launch of any kernel: the five
+    models of the last slice reach none (their JAX modules reach no Pallas
+    kernel either)."""
+    if launches != ctr_expected({}):
+        raise AssertionError(f"{label}: launches {launches}, expected none")
+
+
+def timed_requests(trainer, data, batch, n=7) -> list:
+    import torch
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer.predict(data, batch_size=batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def card_against_cpu(label: str, trainer, data: dict, batch: int) -> dict:
+    """``trainer``'s model on ``data`` in one request on the card against a
+    copy of it on the CPU, each output within SLICE_TOL; no launch."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train.loop import Trainer
+
+    want = Trainer(copy.deepcopy(trainer.model).cpu(), loss_fn=trainer.loss_fn,
+                   device="cpu").predict(data, batch_size=batch)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    got = trainer.predict(data, batch_size=batch)
+    torch.cuda.synchronize()
+    no_launches(f"{label} request", dict(dispatch.LAUNCHES))
+    pairs = got.items() if isinstance(got, dict) else [("out", got)]
+    want = want if isinstance(want, dict) else {"out": want}
+    return {k: check_close(f"{label} request {k} card vs cpu", torch.from_numpy(v),
+                           torch.from_numpy(want[k]), SLICE_TOL)["max_abs_err"]
+            for k, v in pairs}
+
+
+def step_against_cpu(label: str, trainer, batch: dict) -> dict:
+    """One more train_step on the card against the same step of a copy on
+    the CPU: the loss within SLICE_TOL, every state cell (the BatchNorm
+    statistics among them) within 1e-5 but at most STEP_STATE_SHARE of
+    them, which Adam's first steps may move by up to 2·lr where a gradient
+    is near 0."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.train.loop import Trainer
+
+    cpu = Trainer(copy.deepcopy(trainer.model).cpu(), loss_fn=trainer.loss_fn,
+                  learning_rate=LR, device="cpu")
+    cpu.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    loss = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    no_launches(f"{label} step", dict(dispatch.LAUNCHES))
+    want_loss = cpu.train_step(batch)
+    check_close(f"{label} step loss card vs cpu", loss.cpu().reshape(1),
+                want_loss.reshape(1), SLICE_TOL)
+    off = total = 0
+    worst_stat = 0.0
+    for name, w in cpu.model.state_dict().items():
+        diff = (trainer.model.state_dict()[name].cpu().double() - w.double()).abs()
+        if name.endswith((".mean", ".var")):
+            worst_stat = max(worst_stat, float(diff.max()))
+        if float(diff.max()) > 2 * LR * 1.001:
+            raise AssertionError(f"{label} step: {name} off by {float(diff.max())}")
+        off += int((diff > 1e-5).sum())
+        total += diff.numel()
+    res = {"phase": "check", "case": f"{label} step state card vs cpu",
+           "share_off_1e-5": off / total, "bn_stats_max_abs_err": worst_stat,
+           "ok": off / total <= STEP_STATE_SHARE and worst_stat <= 1e-5}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"{label} step: state off the CPU step: {res}")
+    return res
+
+
+def fit_no_launch(label: str, trainer, train: dict, batch: int, **kw) -> tuple:
+    """``trainer.fit`` for one epoch, counts zeroed just before and read just
+    after (none may launch); returns (history, seconds)."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.fit(train, batch_size=batch, epochs=1, verbose=False, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_launches(f"{label} fit", dict(dispatch.LAUNCHES))
+    if not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"{label}: loss {hist['loss']}")
+    return hist, seconds
+
+
+def phase_ncf(ratings, dev) -> dict:
+    """NCF at protocol ncf's widths on the youtube phase's ratings (20,000
+    users): build_ncf_dataset_fast, one epoch of fit at 1024 rows with the
+    ranked HR@10 as its eval_fn (its time left out of the step rate), no
+    kernel launched; a 101-candidate request of NCF_REQUEST test users on
+    the card against the CPU; one more step against the CPU step; request
+    time."""
+    import torch
+
+    from recsys_tpu_torch.data.realistic import build_ncf_dataset_fast
+    from recsys_tpu_torch.models.match.ncf import NCF
+    from recsys_tpu_torch.tools.protocol import ncf_loss, ranked_eval
+    from recsys_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    nu, ni, train, _, test = build_ncf_dataset_fast(ratings)
+    build_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    trainer = Trainer(NCF(nu, ni, device=dev), loss_fn=ncf_loss, learning_rate=LR)
+    readings = []
+    hist, fit_s = fit_no_launch("ncf", trainer, train, NCF_BATCH,
+                                eval_fn=ranked_eval(test, readings))
+    eval_s = sum(r[2] for r in readings)
+    fit_s -= eval_s  # the step rate leaves the ranked reading out, as run_ncf's
+    hr, ndcg = hist["HR@10"][0], hist["NDCG@10"][0]
+    if not 0.0 <= ndcg <= hr <= 1.0:
+        raise AssertionError(f"ncf: HR@10 {hr}, NDCG@10 {ndcg}")
+    request = {k: v[:NCF_REQUEST] for k, v in test.items()}
+    errs = card_against_cpu("ncf", trainer, request, NCF_REQUEST)
+    extra = {k: v[:NCF_BATCH] for k, v in train.items()}
+    step_against_cpu("ncf", trainer, extra)
+    lat = timed_requests(trainer, request, NCF_REQUEST)
+    n = len(train["user"])
+    res = {"phase": "ncf", "users": nu, "items": ni, "train_rows": n, "build_seconds": build_s,
+           "epoch_loss": hist["loss"][0], "HR@10": hr, "NDCG@10": ndcg,
+           "random_HR@10": 10 / 101, "fit_seconds": fit_s, "eval_seconds": eval_s,
+           "fit_examples_per_s": (n - n % NCF_BATCH) / fit_s, "request_max_abs_err": errs,
+           "request_ms_median": float(np.median(lat)), "launches": ctr_expected({})}
+    print(f"ncf: {n} rows, one epoch, HR@10={hr:.4f} NDCG@10={ndcg:.4f}", flush=True)
+    emit(res)
+    return res
+
+
+def phase_din(ratings, meta, dev) -> dict:
+    """DIN with PReLU and with Dice at protocol din's widths (maxlen 40, 12
+    train positions a user) on the youtube phase's ratings and categories:
+    one epoch of fit at 1024 rows with the val split, evaluate_auc on the
+    test rows, no kernel launched; a request against the CPU and one more
+    step against the CPU step, the BatchNorm statistics within 1e-5.
+    {activation: result}."""
+    import torch
+
+    from recsys_tpu_torch.data.realistic import build_din_dataset_fast
+    from recsys_tpu_torch.models.ctr.din import DIN
+    from recsys_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    schema, train, val, test = build_din_dataset_fast(
+        ratings, meta["item_cate"], meta["num_cates"], maxlen=DIN_MAXLEN,
+        max_train_positions=12, seed=0)
+    build_s = time.perf_counter() - t0
+    out = {}
+    for act in ("prelu", "dice"):
+        torch.manual_seed(0)
+        trainer = Trainer(DIN(schema, ffn_activation=act, device=dev), learning_rate=LR)
+        hist, fit_s = fit_no_launch(f"din {act}", trainer, train, DIN_BATCH, val_data=val)
+        auc = trainer.evaluate_auc(test)
+        if not 0.5 < auc <= 1.0:
+            raise AssertionError(f"din {act}: test AUC {auc}")
+        errs = card_against_cpu(f"din {act}", trainer, {k: v[:4096] for k, v in test.items()},
+                                4096)
+        step = step_against_cpu(f"din {act}", trainer,
+                                {k: v[:DIN_BATCH] for k, v in train.items()})
+        lat = timed_requests(trainer, {k: v[:4096] for k, v in test.items()}, 4096)
+        n = len(train["label"])
+        out[act] = {"phase": "din", "activation": act, "train_rows": n,
+                    "build_seconds": build_s, "epoch_loss": hist["loss"][0],
+                    "val_loss": hist["val_loss"][0], "test_auc": auc, "fit_seconds": fit_s,
+                    "fit_examples_per_s": (n - n % DIN_BATCH) / fit_s,
+                    "request_max_abs_err": errs["out"],
+                    "bn_stats_max_abs_err": step["bn_stats_max_abs_err"],
+                    "request_4096_ms_median": float(np.median(lat)),
+                    "launches": ctr_expected({})}
+        print(f"din {act}: {n} rows, one epoch, test AUC={auc:.4f}", flush=True)
+        emit(out[act])
+    return out
+
+
+def phase_multitask(dev) -> dict:
+    """ESMM, MMoE and PLE at protocol multitask's widths on MT_ROWS
+    realistic_multitask rows, one epoch each with the val split, head
+    AUCs, a request and a step against the CPU; then MMoE and PLE on
+    census-format rows (CENSUS_ROWS train) written to CSV files and read
+    back by the loader, one epoch each.  No kernel launches.  {run:
+    result}."""
+    import tempfile
+
+    import torch
+
+    from recsys_tpu_torch.data import census
+    from recsys_tpu_torch.data.realistic import realistic_census, realistic_multitask
+    from recsys_tpu_torch.tools.protocol import head_aucs, multitask_model
+    from recsys_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    schema, data, meta = realistic_multitask(num_examples=MT_ROWS, seed=0)
+    gen_s = time.perf_counter() - t0
+    idx = np.random.default_rng(0).permutation(MT_ROWS)
+    cut, fit_cut = int(MT_ROWS * 0.8), int(MT_ROWS * 0.8 * 0.9)
+    train = {k: v[idx[:fit_cut]] for k, v in data.items()}
+    val = {k: v[idx[fit_cut:cut]] for k, v in data.items()}
+    test = {k: v[idx[cut:]] for k, v in data.items()}
+    t0 = time.perf_counter()
+    train_cols, test_cols, cmeta = realistic_census(num_train=CENSUS_ROWS,
+                                                    num_test=CENSUS_ROWS // 2, seed=0)
+    with tempfile.TemporaryDirectory(prefix="census_") as tmp:
+        paths = (f"{tmp}/census.data", f"{tmp}/census.test")
+        census.write_columns(paths[0], train_cols)
+        census.write_columns(paths[1], test_cols)
+        cschema, ctrain, cval, ctest = census.create_census_dataset(*paths)
+    census_s = time.perf_counter() - t0
+    runs = [(name, schema, train, val, test, ("click", "ctcvr"), ("click", "ctcvr"))
+            for name in ("esmm", "mmoe", "ple")]
+    runs += [(f"census {name}", cschema, ctrain, cval, ctest, ("income", "marital"),
+              ("label_income", "label_marital")) for name in ("mmoe", "ple")]
+    out = {}
+    for label, sch, tr_d, va_d, te_d, tasks, labels in runs:
+        torch.manual_seed(0)
+        model, loss_fn, heads, from_logits = multitask_model(label.split()[-1], sch, tasks,
+                                                             labels, device=dev)
+        trainer = Trainer(model, loss_fn=loss_fn, learning_rate=LR)
+        hist, fit_s = fit_no_launch(label, trainer, tr_d, MT_BATCH, val_data=va_d)
+        aucs = head_aucs(trainer.predict(te_d), te_d, heads, labels, from_logits, heads)
+        # one epoch of the census rows is some 35 steps: only the 200,000
+        # multitask rows are enough to beat chance
+        low = 0.0 if label.startswith("census") else 0.5
+        if not all(low < v <= 1.0 for v in aucs.values()):
+            raise AssertionError(f"{label}: AUCs {aucs}")
+        errs = card_against_cpu(label, trainer, {k: v[:4096] for k, v in te_d.items()}, 4096)
+        step_against_cpu(label, trainer, {k: v[:MT_BATCH] for k, v in tr_d.items()})
+        n = len(tr_d[labels[0]])
+        out[label] = {"phase": "multitask", "model": label, "train_rows": n,
+                      "epoch_loss": hist["loss"][0], **aucs, "fit_seconds": fit_s,
+                      "fit_examples_per_s": (n - n % MT_BATCH) / fit_s,
+                      "request_max_abs_err": errs, "launches": ctr_expected({}),
+                      "data_seconds": census_s if label.startswith("census") else gen_s}
+        print(f"multitask {label}: one epoch of {n} rows, {aucs}", flush=True)
+        emit(out[label])
+    return out
+
+
+PROTOCOL_MT_ARGV = {"ncf": ["--users", "5000", "--epochs", "2"],
+                    "din": ["--users", "5000", "--epochs", "1"],
+                    "multitask": ["--rows", "100000", "--epochs", "1"],
+                    "census": ["--rows", "20000", "--epochs", "1"]}
+
+
+def phase_protocol_mt(dev) -> dict:
+    """The protocol runner's ncf, din, multitask and census modes at the
+    full widths, cut (ncf and din to 5,000 users, ncf for the two epochs of
+    its first HR@10 reading, the others one epoch; multitask to 100,000
+    rows, census to 20,000): each prints its JSON line, launches no kernel,
+    and reports metrics in [0, 1].  {mode: report}."""
+    import io
+
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.tools import protocol
+
+    out = {}
+    for mode, argv in PROTOCOL_MT_ARGV.items():
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        # the main path: counts zeroed just before, read just after
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            protocol.main([mode, *argv, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(dispatch.LAUNCHES)
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        rep = json.loads(line)
+        no_launches(f"protocol {mode}", launches)
+        metrics = [v for k, v in ([*rep.items()] + [(k, v) for r in rep.get("models", {}).values()
+                                                   for k, v in r.items()])
+                   if k in ("HR@10", "NDCG@10", "test_auc") or k.startswith("auc_")]
+        if not metrics or not all(0.0 <= v <= 1.0 for v in metrics):
+            raise AssertionError(f"protocol {mode}: metrics {metrics}")
+        out[mode] = {"phase": "protocol mt", "mode": mode, "seconds": wall,
+                     "launches": launches, "report": rep}
+        emit(out[mode])
+    return out
+
+
 def phase_ctr_check(rng, dev) -> dict:
     """ctr_check.check on every case; returns the worst abs error of the
     bi-interaction kernel at the path's shapes (4096 rows, F = 26 and 39,
@@ -3205,6 +3567,9 @@ def main() -> int:
     timing.update(phase_youtube_timing(rng, dev, yt_test["hist"], ni))
     mind = phase_mind(yt_train, yt_test, ni, dev)
     two_tower = phase_two_tower(ratings, meta, dev)
+    slice_s = {}  # the seconds of the last slice's phases
+    ncf, slice_s["ncf"] = timed(phase_ncf, ratings, dev)
+    din, slice_s["din"] = timed(phase_din, ratings, meta, dev)
     del ratings, meta, yt_train, yt_test
     worst.update(phase_ctr_check(rng, dev))
     ctr_serve = phase_ctr_serve(rng, dev)
@@ -3215,7 +3580,12 @@ def main() -> int:
     probes = phase_probes(dev)
     timing.update(phase_probe_timing(rng, dev))
     cli_runs = phase_cli(dev)
+    slice_s["cli tasks"] = sum(r["seconds"] for k, r in cli_runs.items()
+                               if k in ("ncf", "din") or k.startswith("multitask"))
     protocol_seq = phase_protocol_seq(dev)
+    multitask, slice_s["multitask"] = timed(phase_multitask, dev)
+    protocol_mt, slice_s["protocol mt"] = timed(phase_protocol_mt, dev)
+    emit({"phase": "slice seconds", **slice_s, "total": sum(slice_s.values())})
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -3245,7 +3615,8 @@ def main() -> int:
             yt_serve, yt_fit, yt_after, *ctr_serve.values(), *ctr_steps.values(),
             ctr_protocol, probes, mind, {"launches": mind["train_launches"]},
             *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
-            *cli_runs.values(), *protocol_seq.values()]
+            *cli_runs.values(), *protocol_seq.values(), ncf, *din.values(),
+            *multitask.values(), *protocol_mt.values()]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

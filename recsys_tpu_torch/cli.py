@@ -2,22 +2,28 @@
 recsys_tpu.cli``): one entry point for the ported tasks, on the card unless
 ``--device`` names another.
 
-    python -m recsys_tpu_torch.cli ctr     --model fm|deepfm|widedeep|deepcrossing|dcn|dlrm|autoint
-    python -m recsys_tpu_torch.cli match   --model dssm|senet|fm
+    python -m recsys_tpu_torch.cli ctr --model fm|deepfm|widedeep|deepcrossing|dcn|dlrm|autoint
+    python -m recsys_tpu_torch.cli din       [--reviews r.json --meta m.json]
+    python -m recsys_tpu_torch.cli multitask --model esmm|mmoe|ple [--census train test]
+    python -m recsys_tpu_torch.cli match     --model dssm|senet|fm
+    python -m recsys_tpu_torch.cli ncf
     python -m recsys_tpu_torch.cli sasrec
     python -m recsys_tpu_torch.cli youtube
     python -m recsys_tpu_torch.cli mind
         ... [--epochs 10] [--batch-size 512] [--lr 1e-3] [--device cpu]
 
-Each task trains on the JAX CLI's synthetic data (``synthetic_ctr`` rows;
-``synthetic_ratings`` with ml-100k-shaped users and items) with its
-defaults: Adam at 1e-3; ``ctr`` with a 10% validation split and early
-stopping (patience 1); then prints the JAX CLI's result line (``test AUC:``,
-``test HR@10=... NDCG@10=...`` or ``recall@10: ... over N items``), and
-returns a dict of the fit's per-epoch ``loss`` and the printed metrics.  The
-tasks ``din``, ``multitask`` and ``ncf``, and the flags that read the
-user's own files or shard over devices, are refused with the ROADMAP item
-that ports them.
+Each task trains on the JAX CLI's synthetic data unless given files
+(``synthetic_ctr`` rows; ``synthetic_ratings`` with ml-100k-shaped users
+and items; ``synthetic_reviews`` for din; ``synthetic_multitask`` for
+multitask) with its defaults: Adam at 1e-3; ``ctr``, ``din`` and
+``multitask`` with early stopping (patience 1); ``ncf`` with HR@10 and
+NDCG@10 every second epoch on its epoch lines; then prints the JAX CLI's
+result line (``test AUC:``, ``<head> AUC:`` a head, ``test HR@10=...
+NDCG@10=...`` or ``recall@10: ... over N items``), and returns a dict of
+the fit's per-epoch ``loss`` and the printed metrics.  ``din`` reads an
+Amazon reviews and meta dump, ``multitask --census`` the census-income
+train and test files.  The flags that read other files or shard over
+devices are refused with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -28,29 +34,31 @@ import torch
 import torch.nn.functional as F
 
 from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
-from recsys_tpu_torch.data.movielens import (build_ml100k_arrays, build_sasrec_dataset,
-                                             build_seq_retrieval_dataset, synthetic_ratings,
-                                             synthetic_user_item_frames)
-from recsys_tpu_torch.data.synthetic import synthetic_ctr
+from recsys_tpu_torch.data.amazon import (build_amazon_arrays, create_amazon_electronic_dataset,
+                                          synthetic_reviews)
+from recsys_tpu_torch.data.census import create_census_dataset
+from recsys_tpu_torch.data.movielens import (build_ml100k_arrays, build_ncf_dataset,
+                                             build_sasrec_dataset, build_seq_retrieval_dataset,
+                                             synthetic_ratings, synthetic_user_item_frames)
+from recsys_tpu_torch.data.synthetic import synthetic_ctr, synthetic_multitask
 from recsys_tpu_torch.kernels import default_device
+from recsys_tpu_torch.models.ctr.din import DIN
 from recsys_tpu_torch.models.match.fm_match import FMMatch
 from recsys_tpu_torch.models.match.mind import MIND
+from recsys_tpu_torch.models.match.ncf import NCF
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.two_tower import DSSM, SENetDSSM
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
-from recsys_tpu_torch.tools.protocol import CTR_MODELS, logq_softmax
+from recsys_tpu_torch.tools.protocol import (CTR_MODELS, head_aucs, logq_softmax,
+                                             multitask_model, ncf_loss, ranked_eval)
 from recsys_tpu_torch.train import losses
 from recsys_tpu_torch.train.loop import Trainer
 from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
 from recsys_tpu_torch.train.retrieval import BruteForceIndex, topk_scores
 
 # what the port refuses, and the ROADMAP.md item that ports it
-NOT_PORTED_TASKS = {"ncf": "Queue 1 item 6", "din": "Queue 1 item 7",
-                    "multitask": "Queue 1 item 8"}
 NOT_PORTED_FLAGS = {"data": "Queue 1 item 9", "stream": "Queue 1 item 9",
                     "ml100k": "Queue 1 item 9", "ratings": "Queue 1 item 9",
-                    "reviews": "Queue 1 item 7", "meta": "Queue 1 item 7",
-                    "census": "Queue 1 item 8",
                     "sample_num": "Queue 1 item 9"}  # sample_num samples --data's rows
 DEFAULT_CAPACITY_FACTOR = 2.0  # the JAX CLI's; read by the sharded engines only
 NOT_PORTED_EMBEDDING_OPTIMIZERS = {"lazy_adam": "Queue 1 item 9",
@@ -133,6 +141,62 @@ def run_match(args):
     return {"loss": hist["loss"], "recall@10": r, "num_items": n_items}
 
 
+def run_din(args):
+    """DIN on an Amazon reviews and meta dump (``--reviews``, ``--meta``) or
+    on ``synthetic_reviews(300, 100)`` at max_len 20; early stopping on the
+    val split, then test AUC."""
+    if args.reviews and args.meta:
+        schema, train, val, test = create_amazon_electronic_dataset(
+            args.reviews, args.meta, embed_dim=args.embed_dim)
+    else:
+        schema, train, val, test = build_amazon_arrays(
+            *synthetic_reviews(num_users=300, num_items=100), embed_dim=args.embed_dim,
+            maxlen=20)
+    tr = Trainer(DIN(schema), learning_rate=args.lr, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size or 32, epochs=args.epochs, val_data=val,
+                  early_stopping_patience=1)
+    auc = tr.evaluate_auc(test)
+    print(f"test AUC: {auc:.4f}")
+    return {"loss": hist["loss"], "auc": auc}
+
+
+def run_multitask(args):
+    """ESMM, MMoE or PLE on the census-income files (``--census train
+    test``: income and marital tasks) or on ``synthetic_multitask(20000)``
+    (ctr and cvr, the last 20% the val and test rows); early stopping, then
+    each head's exact AUC."""
+    if args.census:
+        schema, train, val, test = create_census_dataset(*args.census)
+        tasks = ("income", "marital")
+    else:
+        schema, data = synthetic_multitask(num_examples=20000)
+        flat = {"sparse": data["sparse"],
+                **{f"label_{k}": v for k, v in data["labels"].items()}}
+        cut = int(0.8 * len(data["sparse"]))
+        train = {k: v[:cut] for k, v in flat.items()}
+        test = val = {k: v[cut:] for k, v in flat.items()}
+        tasks = ("ctr", "cvr")
+    labels = tuple(f"label_{t}" for t in tasks)
+    model, loss_fn, heads, from_logits = multitask_model(args.model, schema, tasks, labels)
+    tr = Trainer(model, loss_fn=loss_fn, learning_rate=args.lr, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size or 128, epochs=args.epochs, val_data=val,
+                  early_stopping_patience=1)
+    aucs = head_aucs(tr.predict(test), test, heads, labels, from_logits, heads)
+    for head in heads:
+        print(f"{head} AUC: {aucs[f'auc_{head}']:.4f}")
+    return {"loss": hist["loss"], **aucs}
+
+
+def run_ncf(args):
+    """NCF on ``synthetic_ratings(300, 150)``: pairwise BCE, HR@10 and
+    NDCG@10 of the test rows every second epoch (on the epoch lines)."""
+    nu, ni, train, _, test = build_ncf_dataset(synthetic_ratings(num_users=300, num_items=150))
+    tr = Trainer(NCF(nu, ni), loss_fn=ncf_loss, learning_rate=args.lr, device=args.device)
+    hist = tr.fit(train, batch_size=args.batch_size or 128, epochs=args.epochs,
+                  eval_fn=ranked_eval(test), eval_every=2)
+    return {"loss": hist["loss"], **{k: hist[k] for k in ("HR@10", "NDCG@10") if k in hist}}
+
+
 def run_sasrec(args):
     ni, train, _, test = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
                                               maxlen=args.maxlen,
@@ -182,11 +246,10 @@ def run_seq_retrieval(args):
 
 
 def _refuse(args) -> None:
-    """SystemExit naming the ROADMAP item for a task, flag or option the
-    port does not have yet."""
-    if args.task in NOT_PORTED_TASKS:
-        raise SystemExit(f"task {args.task!r} is not ported yet "
-                         f"(ROADMAP.md {NOT_PORTED_TASKS[args.task]})")
+    """SystemExit naming the ROADMAP item for a flag or option the port
+    does not have yet, or the models ``multitask`` takes."""
+    if args.task == "multitask" and args.model not in ("esmm", "mmoe", "ple"):
+        raise SystemExit(f"multitask takes --model esmm, mmoe or ple, not {args.model!r}")
     for flag, item in NOT_PORTED_FLAGS.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
@@ -241,8 +304,9 @@ def main(argv=None):
     _refuse(args)
     if args.task in ("youtube", "mind"):
         args.model = args.task
-    return {"ctr": run_ctr, "match": run_match, "sasrec": run_sasrec,
-            "youtube": run_seq_retrieval, "mind": run_seq_retrieval}[args.task](args)
+    return {"ctr": run_ctr, "din": run_din, "multitask": run_multitask, "match": run_match,
+            "ncf": run_ncf, "sasrec": run_sasrec, "youtube": run_seq_retrieval,
+            "mind": run_seq_retrieval}[args.task](args)
 
 
 if __name__ == "__main__":

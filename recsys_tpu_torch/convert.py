@@ -1,7 +1,8 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
 ``params`` is the flax ``params`` tree of a JAX model (the CTR models,
-SASRec, YoutubeDNN, MIND, the two towers, FM-match) as
+SASRec, YoutubeDNN, MIND, the two towers, FM-match, NCF, ESMM, MMoE, PLE;
+DIN's also takes its ``batch_stats``) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
@@ -257,3 +258,83 @@ def mind_params_from_jax(params: dict, model) -> dict:
              "routing.S": _tensor(params["routing"]["S"])}
     state.update(_tower("user_mlp", params["user_mlp"], model.user_mlp))
     return state
+
+
+def ncf_params_from_jax(params: dict, model) -> dict:
+    """JAX ``NCF`` params -> the port model's state dict: the four tables
+    (``user_gmf``, ``item_gmf``, ``user_mlp``, ``item_mlp``) as they are,
+    ``mlp``'s ``Dense_i`` and ``head`` transposed."""
+    state = {k: _tensor(params[k]) for k in ("user_gmf", "item_gmf", "user_mlp", "item_mlp")}
+    state.update(_tower("mlp", params["mlp"], model.mlp))
+    state.update({f"head.{k}": v for k, v in _dense(params["head"]).items()})
+    return state
+
+
+def _batch_norm(prefix: str, params: dict | None, stats: dict) -> dict:
+    """A flax ``BatchNorm``'s ``scale``/``bias`` (where ``params`` has them)
+    and its ``batch_stats`` ``mean``/``var`` -> the port ``BatchNorm``'s."""
+    state = {f"{prefix}.{k}": _tensor(v) for k, v in (params or {}).items()}
+    state.update({f"{prefix}.{k}": _tensor(stats[k]) for k in ("mean", "var")})
+    return state
+
+
+def din_variables_from_jax(params: dict, batch_stats: dict, model) -> dict:
+    """JAX ``DIN`` variables (``params`` and ``batch_stats``) -> the port
+    model's state dict, buffers included: ``StackedEmbedding_0`` ->
+    ``embedding`` (unpacked), ``TargetAttention_0`` -> ``attention``,
+    ``BatchNorm_0`` -> ``bn``, ``Dense_i`` -> ``ffn.i``, ``PReLU_i`` or
+    ``Dice_i`` -> ``acts.i`` (a Dice's ``BatchNorm_0`` statistics ->
+    ``acts.i.bn``)."""
+    state = _unpack_tables(params["StackedEmbedding_0"], model.schema,
+                           len(model.embedding.group_vocab), "embedding.")
+    state.update(_tower("attention", params["TargetAttention_0"], model.attention))
+    state.update(_batch_norm("bn", params["BatchNorm_0"], batch_stats["BatchNorm_0"]))
+    for i in range(len(model.ffn)):
+        state.update({f"ffn.{i}.{k}": v for k, v in _dense(params[f"Dense_{i}"]).items()})
+    for i in range(len(model.acts)):
+        if f"Dice_{i}" in params:
+            state[f"acts.{i}.alpha"] = _tensor(params[f"Dice_{i}"]["alpha"])
+            state.update(_batch_norm(f"acts.{i}.bn", None,
+                                     batch_stats[f"Dice_{i}"]["BatchNorm_0"]))
+        else:
+            state[f"acts.{i}.alpha"] = _tensor(params[f"PReLU_{i}"]["alpha"])
+    return state
+
+
+def esmm_params_from_jax(params: dict, model) -> dict:
+    """JAX ``ESMM`` params -> the port model's state dict:
+    ``StackedEmbedding_0`` -> ``embedding`` (unpacked), ``MLP_0`` ..
+    ``MLP_3`` -> ``user_mlp``, ``item_mlp``, ``ctr_head``, ``cvr_head``."""
+    state = _unpack_tables(params["StackedEmbedding_0"], model.schema,
+                           len(model.embedding.group_vocab), "embedding.")
+    for i, name in enumerate(("user_mlp", "item_mlp", "ctr_head", "cvr_head")):
+        state.update(_tower(name, params[f"MLP_{i}"], getattr(model, name)))
+    return state
+
+
+def mmoe_params_from_jax(params: dict, model) -> dict:
+    """JAX ``MMoE`` or ``PLE`` params -> the port model's state dict:
+    ``StackedEmbedding_0`` -> ``embedding`` (unpacked); an expert bank's
+    ``w{i}``/``b{i}`` as they are, MMoE's ``ExpertBank_0`` -> ``experts``
+    and PLE's ``l{level}_experts_{task|shared}`` -> ``experts.<name>``; a
+    gate's kernel transposed, ``gate_{task}`` and PLE's
+    ``l{level}_gate_{task|shared}`` -> ``gates.<name>.dense``;
+    ``tower_{task}`` -> ``towers.tower_{task}``."""
+    state = {}
+    for name, tree in params.items():
+        if name == "StackedEmbedding_0":
+            state.update(_unpack_tables(tree, model.schema, len(model.embedding.group_vocab),
+                                        "embedding."))
+        elif name == "ExpertBank_0" or "_experts_" in name:
+            key = "experts" if name == "ExpertBank_0" else f"experts.{name}"
+            state.update({f"{key}.{k}": _tensor(v) for k, v in tree.items()})
+        elif "gate_" in name:
+            state[f"gates.{name}.dense.weight"] = _dense(tree["Dense_0"])["weight"]
+        elif name.startswith("tower_"):
+            state.update(_tower(f"towers.{name}", tree, model.towers[name]))
+        else:
+            raise ValueError(f"no counterpart in the port for the flax params {name!r}")
+    return state
+
+
+ple_params_from_jax = mmoe_params_from_jax

@@ -1,6 +1,6 @@
-"""MovieLens-style data for SASRec, YoutubeDNN, MIND and the two-tower
+"""MovieLens-style data for NCF, SASRec, YoutubeDNN, MIND and the two-tower
 models (the port's copy of ``recsys_tpu/data/movielens.py::synthetic_ratings``,
-``build_ml100k_arrays``, ``build_sasrec_dataset`` and
+``build_ml100k_arrays``, ``build_ncf_dataset``, ``build_sasrec_dataset`` and
 ``build_seq_retrieval_dataset``, and of the user and item frames ``cli
 match`` makes), in numpy only: ratings, users and items are dicts of
 columns instead of pandas DataFrames.  The functions that draw random
@@ -119,6 +119,54 @@ def build_ml100k_arrays(ratings: dict, users: dict, items: dict, embed_dim: int 
                 "label": df["label"][sel]}
 
     return user_schema, item_schema, take(idx[:cut]), take(idx[cut:])
+
+
+def build_ncf_dataset(ratings: dict, train_neg_num: int = 1, test_neg_num: int = 100,
+                      trans_score: int = 1, seed: int = 2020):
+    """The NCF protocol, one user at a time: events rated ``trans_score``
+    or more, users and items renumbered 0.. in sorted order, each user's
+    items in time order (a stable sort; users with fewer than 3 skipped);
+    every item but the last two trains with ``train_neg_num`` negatives,
+    the last two are the val and test positives with ``test_neg_num``
+    each; a negative is drawn uniformly until it is none of the user's
+    items.  Returns (num_users, num_items, train, val, test), each a dict
+    of ``user`` (B,), ``pos_item`` (B,) and ``neg_item`` (B, N) int32."""
+    rng = np.random.default_rng(seed)
+    keep = np.asarray(ratings["rating"]) >= trans_score
+    u_ids, u = np.unique(np.asarray(ratings["user_id"])[keep], return_inverse=True)
+    i_ids, i = np.unique(np.asarray(ratings["item_id"])[keep], return_inverse=True)
+    order = np.lexsort((np.asarray(ratings["timestamp"])[keep], u))
+    u, i = u[order], i[order]
+    users, starts = np.unique(u, return_index=True)
+    num_items = len(i_ids)
+
+    def sample_neg(exclude: set, n: int) -> list:
+        out = []
+        while len(out) < n:
+            cand = int(rng.integers(0, num_items))
+            if cand not in exclude:
+                out.append(cand)
+        return out
+
+    rows = {k: ([], [], []) for k in ("train", "val", "test")}
+    for user, s, e in zip(users, starts, [*starts[1:], len(u)]):
+        seq = i[s:e].tolist()
+        if len(seq) < 3:
+            continue
+        exclude = set(seq)
+        parts = [("train", item, train_neg_num) for item in seq[:-2]]
+        parts += [("val", seq[-2], test_neg_num), ("test", seq[-1], test_neg_num)]
+        for split, item, n in parts:
+            rows[split][0].append(user)
+            rows[split][1].append(item)
+            rows[split][2].append(sample_neg(exclude, n))
+
+    def pack(us, ps, ns):
+        return {"user": np.asarray(us, np.int32), "pos_item": np.asarray(ps, np.int32),
+                "neg_item": np.asarray(ns, np.int32)}
+
+    return len(u_ids), num_items, pack(*rows["train"]), pack(*rows["val"]), \
+        pack(*rows["test"])
 
 
 def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20,

@@ -133,14 +133,14 @@ class MIND(nn.Module):
     (num_items, embed_dim) is drawn N(0, 0.05²).  ``forward`` returns
     {'user', 'item', 'interests'}."""
 
-    id_keys = ("hist", "item_id")  # item-id inputs, checked by Trainer
-
     def __init__(self, num_items: int, embed_dim: int = 32, k_max: int = 4,
                  routing_iterations: int = 3, pow_p: float = 2.0,
                  user_units: Sequence[int] = (64,), pad_id: int = 0,
                  dropout_rate: float = 0.0, device=None):
         super().__init__()
         self.num_items = num_items
+        # item-id inputs, checked by Trainer
+        self.id_vocabs = dict.fromkeys(("hist", "item_id"), num_items)
         self.embed_dim = embed_dim
         self.pad_id = pad_id
         self.item_table = nn.Parameter(torch.randn(num_items, embed_dim, device=device) * 0.05)

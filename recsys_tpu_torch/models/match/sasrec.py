@@ -28,14 +28,14 @@ class SASRec(nn.Module):
     (num_items, embed_dim) f32.  ``causal`` (the published model) masks
     later positions; the all-position scheme needs it."""
 
-    id_keys = ("hist", "pos", "neg")  # item-id inputs, checked by Trainer
-
     def __init__(self, num_items: int, embed_dim: int = 64, num_blocks: int = 2,
                  num_heads: int = 1, ffn_dim: int | None = None, max_len: int = 50,
                  dropout_rate: float = 0.2, pad_id: int = 0, causal: bool = True,
                  device=None):
         super().__init__()
         self.num_items = num_items
+        # item-id inputs, checked by Trainer
+        self.id_vocabs = dict.fromkeys(("hist", "pos", "neg"), num_items)
         self.embed_dim = embed_dim
         self.pad_id = pad_id
         self.item_table = nn.Parameter(

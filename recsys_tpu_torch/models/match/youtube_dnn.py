@@ -35,7 +35,6 @@ class YoutubeDNN(nn.Module):
     ``user_dense_dim`` is the width of an optional ``user_dense`` input
     (the JAX module infers it at init)."""
 
-    id_keys = ("hist", "item_id")  # item-id inputs, checked by Trainer
     sparse_key = "user_sparse"     # profile ids, checked against the schema
 
     def __init__(self, user_schema: FeatureSchema, num_items: int, embed_dim: int = 32,
@@ -46,6 +45,8 @@ class YoutubeDNN(nn.Module):
         check_mode(pooling)
         self.schema = user_schema
         self.num_items = num_items
+        # item-id inputs, checked by Trainer
+        self.id_vocabs = dict.fromkeys(("hist", "item_id"), num_items)
         self.hist_field = hist_field
         self.pooling = pooling
         self.pad_id = user_schema.field(hist_field).pad_id

@@ -1,6 +1,6 @@
-"""Attention modules: multi-head self-attention, the SASRec transformer
-block, learned positional embeddings (the port's copy of
-``recsys_tpu/ops/attention.py``; ``TargetAttention`` comes with DIN).
+"""Attention modules: multi-head self-attention, DIN's target attention,
+the SASRec transformer block, learned positional embeddings (the port's
+copy of ``recsys_tpu/ops/attention.py``).
 
 Layouts follow the JAX package: activations (B, S, D), heads split to
 (B, H, S, D/H).  ``Linear.weight`` is the transpose of flax's
@@ -11,6 +11,8 @@ other); LayerNorm uses flax's epsilon, 1e-6.  Attention goes through
 any other, the materialised softmax, on every device.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -107,6 +109,35 @@ class MultiHeadAttention(nn.Module):
             res = q_in if self.wr is None else self.wr(q_in)
             out = F.relu(out + res)
         return out
+
+
+class TargetAttention(nn.Module):
+    """DIN's target attention over a padded behaviour sequence: each history
+    row is scored against the candidate by an MLP over [q, k, q − k, q·k]
+    (``hidden_units`` with sigmoid, then a linear score; ``layers`` holds
+    them all, as flax's ``Dense_i``), the padding gets ``NEG_INF`` (−1e9, not −inf), and the softmax weights
+    sum the history.  query (B, D), keys (B, L, D), mask (B, L) -> (B, D).
+    A history that is all padding scores every row ``NEG_INF`` and so
+    averages its pad rows with equal weights, as the JAX module does."""
+
+    def __init__(self, dim: int, hidden_units: Sequence[int] = (32, 16), device=None):
+        super().__init__()
+        dims = [4 * dim, *hidden_units, 1]
+        self.layers = nn.ModuleList(dense_init_(nn.Linear(a, b, device=device))
+                                    for a, b in zip(dims, dims[1:]))
+
+    def forward(self, query: torch.Tensor, keys: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        q = query[:, None, :].expand_as(keys)
+        h = torch.cat([q, keys, q - keys, q * keys], dim=-1)
+        for lin in self.layers[:-1]:
+            h = torch.sigmoid(lin(h))
+        scores = self.layers[-1](h)[..., 0]  # (B, L)
+        scores = torch.where(mask.bool(), scores, attn_ref.NEG_INF)
+        scores = scores - scores.max(dim=-1, keepdim=True).values
+        e = scores.exp()
+        weights = e / e.sum(dim=-1, keepdim=True)
+        return torch.einsum("bl,bld->bd", weights.to(keys.dtype), keys)
 
 
 class PositionalEmbedding(nn.Module):

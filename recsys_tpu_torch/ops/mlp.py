@@ -1,5 +1,6 @@
 """Dense towers: ``MLP`` (layer by layer, plain PyTorch matmuls) and
-``FusedMLP`` (the whole relu stack in one fused CUDA kernel each way)."""
+``FusedMLP`` (the whole relu stack in one fused CUDA kernel each way), and
+the layers DIN's towers use: flax's ``BatchNorm``, ``Dice`` and ``PReLU``."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -11,6 +12,75 @@ from torch import nn
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.ops.attention import Dropout
 from recsys_tpu_torch.ops.init import dense_init_, lecun_normal_
+
+
+class BatchNorm(nn.Module):
+    """flax's ``BatchNorm`` over the last axis (not ``torch.nn.BatchNorm1d``,
+    which differs in three ways).  In training it normalises by the batch's
+    statistics, computed in f32 as flax's fast variance, E[x²] − E[x]²
+    clipped at 0, and moves the buffers ``mean`` and ``var`` (initially 0
+    and 1) to keep ``momentum`` of their old value and take 1 − momentum of
+    the batch's biased variance; in eval it normalises by the buffers.
+    ``y = (x − mean)·(rsqrt(var + eps)·scale) + bias``, with ``scale`` (1)
+    and ``bias`` (0) learned where ``use_scale``, ``use_bias``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 use_scale: bool = True, use_bias: bool = True, device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.register_buffer("mean", torch.zeros(num_features, device=device))
+        self.register_buffer("var", torch.ones(num_features, device=device))
+        self.scale = nn.Parameter(torch.ones(num_features, device=device)) if use_scale \
+            else None
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device)) if use_bias \
+            else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            mul = mul * self.scale
+        y = (x - mean) * mul
+        return y + self.bias if self.bias is not None else y
+
+
+class Dice(nn.Module):
+    """DIN's adaptive activation ``x·p + alpha·x·(1 − p)``, ``p`` the sigmoid
+    of ``x`` normalised by a ``BatchNorm`` with no scale and no bias (eps
+    1e-9); ``alpha`` per channel, initially 0."""
+
+    def __init__(self, num_features: int, eps: float = 1e-9, momentum: float = 0.99,
+                 device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(num_features, device=device))
+        self.bn = BatchNorm(num_features, momentum, eps, use_scale=False, use_bias=False,
+                            device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(self.bn(x))
+        return x * p + self.alpha * x * (1.0 - p)
+
+
+class PReLU(nn.Module):
+    """``where(x >= 0, x, alpha·x)`` with a per-channel slope ``alpha``,
+    initially 0.25 (``F.prelu`` differs at x = 0 in its gradient)."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((num_features,), 0.25, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha * x)
 
 
 class MLP(nn.Module):

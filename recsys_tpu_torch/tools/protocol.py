@@ -1,11 +1,15 @@
 """The quality protocols on the port (the counterpart of the JAX package's
 ``python -m recsys_tpu.tools.protocol``):
 
-    python -m recsys_tpu_torch.tools.protocol ctr    [--rows 1000000] [--models fm,deepfm,...]
-    python -m recsys_tpu_torch.tools.protocol sasrec [--users 100000] [--drift-scale 6.0]
-    python -m recsys_tpu_torch.tools.protocol seqret [--users 100000]   # YoutubeDNN recall@10
-    python -m recsys_tpu_torch.tools.protocol mind   [--users 100000]   # multi-interest recall@10
-    python -m recsys_tpu_torch.tools.protocol dssm   [--users 100000] [--models dssm,senet,fm_match]
+    python -m recsys_tpu_torch.tools.protocol ctr       [--rows 1000000] [--models fm,deepfm,...]
+    python -m recsys_tpu_torch.tools.protocol ncf       [--users 100000] [--items 20000]
+    python -m recsys_tpu_torch.tools.protocol sasrec    [--users 100000] [--drift-scale 6.0]
+    python -m recsys_tpu_torch.tools.protocol seqret    [--users 100000]   # YoutubeDNN recall@10
+    python -m recsys_tpu_torch.tools.protocol din       [--users 100000] [--maxlen 40]
+    python -m recsys_tpu_torch.tools.protocol multitask [--rows 1000000] [--models esmm,mmoe,ple]
+    python -m recsys_tpu_torch.tools.protocol mind      [--users 100000]  # multi-interest recall@10
+    python -m recsys_tpu_torch.tools.protocol dssm      [--users 100000] [--models dssm,senet,...]
+    python -m recsys_tpu_torch.tools.protocol census    [--rows 200000] [--models mmoe,ple]
         ... [--seed 0] [--device cpu] [--out report.json]
 
 ``ctr``: ``realistic_criteo`` rows (26 Zipfian fields at the Criteo
@@ -14,17 +18,25 @@ the seed, 10% of train held out for validation, Adam at 1e-3, batch 512, up
 to 10 epochs with early stopping on the validation loss (patience 1, best
 weights restored), then test AUC, also as a share of the generator's oracle
 margin.  The sequence modes run on ``realistic_ratings`` (100,000 users,
-20,000 items): ``sasrec`` leave-last-2 with 20 test negatives, all-position
-training, HR@10 and NDCG@10; ``seqret`` (YoutubeDNN) and ``mind`` the
-next-item retrieval protocol with the logQ-corrected in-batch softmax and
-recall@10 over the whole catalog; ``dssm`` the two towers (DSSM and SENet
-with the in-batch softmax on positives, FM-match with BCE on rated pairs)
-with the side features of ``return_meta`` and recall@10 of each user's
-last item.  Each mode takes the JAX runner's batch size and epochs unless
-given, and prints one JSON object: the JAX report's keys plus
-``fit_examples_per_s`` (examples trained per second of ``fit``), a model's
-in ``ctr`` and ``dssm``.  The modes ``ncf``, ``din``, ``multitask`` and
-``census`` are not ported yet (ROADMAP.md Queue 1 items 6-8).
+20,000 items): ``ncf`` leave-last-2 with one train negative and 100 test
+negatives, pairwise BCE, HR@10 and NDCG@10 every second epoch;
+``sasrec`` leave-last-2 with 20 test negatives, all-position training,
+HR@10 and NDCG@10; ``seqret`` (YoutubeDNN) and ``mind`` the next-item
+retrieval protocol with the logQ-corrected in-batch softmax and recall@10
+over the whole catalog; ``din`` the Amazon protocol on the ratings'
+categories (histories of 40, one negative a positive, at most 12 train
+positions a user, early stopping) and test AUC; ``dssm`` the two towers
+(DSSM and SENet with the in-batch softmax on positives, FM-match with BCE
+on rated pairs) with the side features of ``return_meta`` and recall@10 of
+each user's last item.  ``multitask``: ESMM, MMoE and PLE on
+``realistic_multitask`` rows (80/20 split, 10% validation, early
+stopping), AUC of the click and click-and-convert heads; ``census``:
+MMoE and PLE on ``realistic_census`` rows written to CSV files and read
+back by ``data/census.py``'s loader, AUC of the income and marital heads.
+Each mode takes the JAX runner's batch size and epochs unless given, and
+prints one JSON object: the JAX report's keys plus ``fit_examples_per_s``
+(examples trained per second of ``fit``), a model's in ``ctr``, ``dssm``,
+``multitask`` and ``census``.
 """
 from __future__ import annotations
 
@@ -32,30 +44,39 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature, VarLenSparseFeature
+from recsys_tpu_torch.data import census
 from recsys_tpu_torch.data.movielens import build_sasrec_dataset, build_seq_retrieval_dataset
-from recsys_tpu_torch.data.realistic import realistic_criteo, realistic_ratings
+from recsys_tpu_torch.data.realistic import (build_din_dataset_fast, build_ncf_dataset_fast,
+                                             realistic_census, realistic_criteo,
+                                             realistic_multitask, realistic_ratings)
 from recsys_tpu_torch.kernels import build, default_device
 from recsys_tpu_torch.models.ctr.autoint import AutoInt
 from recsys_tpu_torch.models.ctr.dcn import DCN
 from recsys_tpu_torch.models.ctr.deep_crossing import DeepCrossing
 from recsys_tpu_torch.models.ctr.deepfm import DeepFM
+from recsys_tpu_torch.models.ctr.din import DIN
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
+from recsys_tpu_torch.models.ctr.esmm import ESMM
 from recsys_tpu_torch.models.ctr.fm import FM
+from recsys_tpu_torch.models.ctr.mmoe import MMoE
+from recsys_tpu_torch.models.ctr.ple import PLE
 from recsys_tpu_torch.models.ctr.wide_deep import WideDeep
 from recsys_tpu_torch.models.match.fm_match import FMMatch
 from recsys_tpu_torch.models.match.mind import MIND
+from recsys_tpu_torch.models.match.ncf import NCF
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.two_tower import TwoTower
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
 from recsys_tpu_torch.train import losses
 from recsys_tpu_torch.train.loop import Trainer
-from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
+from recsys_tpu_torch.train.metrics import auc_exact, hit_rate_ndcg_at_k, recall_at_k
 from recsys_tpu_torch.train.retrieval import topk_scores
 
 CTR_MODELS = {"fm": FM, "deepfm": DeepFM, "widedeep": WideDeep,
@@ -63,11 +84,13 @@ CTR_MODELS = {"fm": FM, "deepfm": DeepFM, "widedeep": WideDeep,
 DEFAULT_CTR_MODELS = "fm,deepfm,widedeep,deepcrossing,dcn,dlrm,autoint"
 DEFAULT_DSSM_MODELS = "dssm,senet,fm_match"
 # mode: (batch size, epochs) when not given, as the JAX runner's main
-MODE_DEFAULTS = {"ctr": (512, 10), "sasrec": (256, 5), "seqret": (1024, 5),
-                 "mind": (1024, 5), "dssm": (2048, 4)}
-# the JAX runner's modes the port has not taken yet, and the ROADMAP item of each
-NOT_PORTED = {"ncf": "Queue 1 item 6", "din": "Queue 1 item 7",
-              "multitask": "Queue 1 item 8", "census": "Queue 1 item 8"}
+MODE_DEFAULTS = {"ctr": (512, 10), "ncf": (1024, 8), "sasrec": (256, 5), "seqret": (1024, 5),
+                 "din": (1024, 3), "multitask": (512, 5), "mind": (1024, 5),
+                 "dssm": (2048, 4), "census": (512, 5)}
+MODE_ROWS = {"ctr": 1_000_000, "multitask": 1_000_000, "census": 200_000}
+DEFAULT_MULTITASK_MODELS = "esmm,mmoe,ple"
+DEFAULT_CENSUS_MODELS = "mmoe,ple"
+DIN_MAXLEN = 40  # the JAX runner's din default; the other sequence modes take 50
 
 
 def _log(msg: str) -> None:
@@ -161,6 +184,52 @@ def _timed_fit(tr: Trainer, train: dict, batch_size: int, epochs: int, **kw):
     return hist, round(len(hist["loss"]) * (n - n % b) / (time.time() - t0), 1)
 
 
+def ncf_loss(out, batch):
+    return losses.pairwise_bce(out["pos_logits"], out["neg_logits"])
+
+
+def ranked_eval(test: dict, readings: list | None = None):
+    """NCF's ``fit`` hook: HR@10 and NDCG@10 of the test rows' positives
+    among their negatives, each reading appended to ``readings`` (with the
+    seconds it took) where given."""
+    def eval_fn(trainer):
+        t0 = time.time()
+        out = trainer.predict(test)
+        hr, ndcg = hit_rate_ndcg_at_k(out["pos_logits"], out["neg_logits"], k=10)
+        if readings is not None:
+            readings.append((hr, ndcg, time.time() - t0))
+        return {"HR@10": hr, "NDCG@10": ndcg}
+    return eval_fn
+
+
+def run_ncf(users: int = 100_000, items: int = 20_000, batch_size: int = 1024,
+            epochs: int = 8, seed: int = 0, device=None) -> dict:
+    """NCF leave-last-2: one true negative a train positive and 100 a test
+    user, pairwise BCE, Adam at 1e-3; HR@10 and NDCG@10 of each user's
+    last item every second epoch, the last reading and the best reported
+    (``fit_examples_per_s`` leaves the readings' time out)."""
+    t0 = time.time()
+    ratings = realistic_ratings(num_users=users, num_items=items, seed=seed)
+    nu, ni, train, _, test = build_ncf_dataset_fast(ratings)
+    _log(f"built {len(train['user'])} train rows / {nu} users / {ni} items "
+         f"in {time.time() - t0:.1f}s")
+    torch.manual_seed(seed)
+    readings = []
+    tr = Trainer(NCF(nu, ni), loss_fn=ncf_loss, learning_rate=1e-3, device=device)
+    t0 = time.time()
+    hist = tr.fit(train, batch_size=batch_size, epochs=epochs, verbose=True,
+                  eval_fn=ranked_eval(test, readings), eval_every=2)
+    fit_s = time.time() - t0 - sum(r[2] for r in readings)
+    n = len(train["user"])
+    b = min(batch_size, n)
+    best = max(r[:2] for r in readings) if readings else (0.0, 0.0)
+    last = readings[-1] if readings else (0.0, 0.0)
+    return {"users": nu, "items": ni, "train_rows": n, "HR@10": round(last[0], 4),
+            "NDCG@10": round(last[1], 4), "best_HR@10": round(best[0], 4),
+            "random_HR@10": round(10 / 101, 4),
+            "fit_examples_per_s": round(len(hist["loss"]) * (n - n % b) / fit_s, 1)}
+
+
 def run_sasrec(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
                batch_size: int = 256, epochs: int = 5, seed: int = 0,
                drift_scale: float = 6.0, device=None) -> dict:
@@ -186,6 +255,162 @@ def run_sasrec(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
     return {"users": users, "items": ni, "maxlen": maxlen, "drift_scale": drift_scale,
             "HR@10": round(hr, 4), "NDCG@10": round(ndcg, 4),
             "random_HR@10": round(10 / 21, 4), "fit_examples_per_s": rate}
+
+
+def run_din(users: int = 100_000, items: int = 20_000, maxlen: int = DIN_MAXLEN,
+            batch_size: int = 1024, epochs: int = 3, seed: int = 0, device=None) -> dict:
+    """DIN on the Amazon protocol over ``realistic_ratings`` with its item
+    categories: histories of ``maxlen``, one true negative a positive, at
+    most 12 train positions a user, the second-to-last position the
+    validation set (early stopping, patience 1), the last the test set;
+    test AUC."""
+    t0 = time.time()
+    ratings, meta = realistic_ratings(num_users=users, num_items=items, seed=seed,
+                                      return_meta=True)
+    schema, train, val, test = build_din_dataset_fast(
+        ratings, meta["item_cate"], meta["num_cates"], maxlen=maxlen, max_train_positions=12,
+        seed=seed)
+    _log(f"built {len(train['label'])} train rows / {len(test['label'])} test rows "
+         f"in {time.time() - t0:.1f}s")
+    torch.manual_seed(seed)
+    tr = Trainer(DIN(schema), learning_rate=1e-3, device=device)
+    hist, rate = _timed_fit(tr, train, batch_size, epochs, val_data=val,
+                            early_stopping_patience=1, verbose=True)
+    auc = tr.evaluate_auc(test)
+    return {"users": users, "items": items, "maxlen": maxlen,
+            "train_rows": int(len(train["label"])), "test_auc": round(float(auc), 4),
+            "epochs_ran": len(hist["loss"]), "fit_examples_per_s": rate}
+
+
+def multitask_model(name: str, schema, tasks: tuple, labels: tuple, device=None):
+    """The multi-task protocols' and CLI's model ``name`` (esmm, mmoe, ple)
+    for two tasks read from the batch keys ``labels``: (model, loss_fn,
+    heads, from_logits).  ESMM trains its ``ctr`` and ``ctcvr``
+    probabilities with ``bce_probs`` (the first half of the sparse fields
+    the user side); MMoE and PLE name their heads ``tasks`` and train their
+    logits with ``multi_task_bce``.  ``heads`` are the outputs scored
+    against ``labels``."""
+    if name == "esmm":
+        def loss_fn(out, batch):
+            return losses.bce_probs(out["ctr"], batch[labels[0]]) + \
+                losses.bce_probs(out["ctcvr"], batch[labels[1]])
+        return (ESMM(schema, num_user_fields=len(schema.sparse) // 2, device=device), loss_fn,
+                ("ctr", "ctcvr"), False)
+    if name not in ("mmoe", "ple"):
+        raise ValueError(f"unknown multi-task model {name!r}: choose from esmm, mmoe, ple")
+
+    def loss_fn(out, batch):
+        return losses.multi_task_bce(out, {t: batch[k] for t, k in zip(tasks, labels)})
+    return ((MMoE if name == "mmoe" else PLE)(schema, task_names=tasks, device=device), loss_fn,
+            tasks, True)
+
+
+def head_aucs(preds: dict, test: dict, heads: tuple, labels: tuple, from_logits: bool,
+              names: tuple) -> dict:
+    """{f"auc_{name}": exact AUC of head against label} (sigmoid first for
+    logits), rounded to 4 places."""
+    out = {}
+    for head, label, name in zip(heads, labels, names):
+        p = preds[head]
+        if from_logits:
+            p = torch.sigmoid(torch.from_numpy(p)).numpy()
+        out[f"auc_{name}"] = round(float(auc_exact(p, test[label])), 4)
+    return out
+
+
+def _warm_multitask(schema, data: dict, batch_size: int, device) -> None:
+    """One throwaway 2-batch fit and predict of an MMoE over ``data``'s
+    label keys, so CUDA's start-up stays out of the first model's
+    ``seconds``."""
+    t0 = time.time()
+    small = {k: v[:2 * batch_size] for k, v in data.items()}
+    label_keys = tuple(k for k in small if k not in ("dense", "sparse"))
+    tasks = tuple(f"t{i}" for i in range(len(label_keys)))
+    model, loss_fn, _, _ = multitask_model("mmoe", schema, tasks, label_keys)
+    tr = Trainer(model, loss_fn=loss_fn, device=device)
+    tr.fit(small, batch_size=batch_size, epochs=1, val_data=small, verbose=False)
+    tr.predict(small)
+    _log(f"process warmup {time.time() - t0:.1f}s (excluded from per-model seconds)")
+
+
+def _fit_models(models, schema, train: dict, val: dict, test: dict, tasks: tuple,
+                labels: tuple, names: tuple, batch_size: int, epochs: int, seed: int,
+                device) -> dict:
+    """Each multi-task model trained with early stopping on ``val``
+    (patience 1), then its heads' test AUCs: {model: row}."""
+    out = {}
+    for name in models:
+        t0 = time.time()
+        torch.manual_seed(seed)
+        model, loss_fn, heads, from_logits = multitask_model(name, schema, tasks, labels)
+        tr = Trainer(model, loss_fn=loss_fn, learning_rate=1e-3, device=device)
+        hist, rate = _timed_fit(tr, train, batch_size, epochs, val_data=val,
+                                early_stopping_patience=1, verbose=False)
+        row = {"epochs_ran": len(hist["loss"]), "seconds": round(time.time() - t0, 1),
+               **head_aucs(tr.predict(test), test, heads, labels, from_logits, names),
+               "fit_examples_per_s": rate}
+        out[name] = row
+        _log(f"{name}: {row}")
+        del tr
+    return out
+
+
+def run_multitask(rows: int = 1_000_000, models=tuple(DEFAULT_MULTITASK_MODELS.split(",")),
+                  batch_size: int = 512, epochs: int = 5, seed: int = 0, device=None) -> dict:
+    """ESMM, MMoE and PLE on ``realistic_multitask`` rows: an 80/20 split
+    by one permutation from the seed, 10% of train held out for validation
+    (early stopping, patience 1), Adam at 1e-3; the exact AUC of the click
+    and the click-and-convert heads, beside the generator's oracles."""
+    t0 = time.time()
+    schema, data, meta = realistic_multitask(num_examples=rows, seed=seed)
+    _log(f"generated {rows} rows in {time.time() - t0:.1f}s (oracle ctr "
+         f"{meta['oracle_auc_ctr']:.4f}, ctcvr {meta['oracle_auc_ctcvr']:.4f})")
+    idx = np.random.default_rng(seed).permutation(rows)
+    cut = int(rows * 0.8)
+    train = {k: v[idx[:cut]] for k, v in data.items()}
+    test = {k: v[idx[cut:]] for k, v in data.items()}
+    _warm_multitask(schema, train, batch_size, device)
+    fit_cut = int(cut * 0.9)  # fit's validation split, as validation_split=0.1 cuts it
+    fit = {k: v[:fit_cut] for k, v in train.items()}
+    val = {k: v[fit_cut:] for k, v in train.items()}
+    labels = ("click", "ctcvr")
+    return {"rows": rows, "oracle_auc_ctr": round(meta["oracle_auc_ctr"], 4),
+            "oracle_auc_ctcvr": round(meta["oracle_auc_ctcvr"], 4),
+            "models": _fit_models(models, schema, fit, val, test, labels, labels, labels,
+                                  batch_size, epochs, seed, device)}
+
+
+def run_census(rows: int = 200_000, models=tuple(DEFAULT_CENSUS_MODELS.split(",")),
+               batch_size: int = 512, epochs: int = 5, seed: int = 0, device=None) -> dict:
+    """The census-income protocol through the loader: ``realistic_census``
+    rows (``rows`` train, half as many test) written to CSV files in a
+    temporary directory and read back by ``census.create_census_dataset``
+    (label parsing, per-column codes, the test file split 1:1 into val and
+    test); MMoE and PLE with early stopping on val (patience 1); the exact
+    AUC of the income and marital heads."""
+    unknown = [m for m in models if m not in ("mmoe", "ple")]
+    if unknown:
+        raise ValueError(f"census protocol supports mmoe/ple, got {unknown}")
+    t0 = time.time()
+    n_test = max(rows // 2, 1)
+    train_cols, test_cols, meta = realistic_census(num_train=rows, num_test=n_test, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="census_") as tmp:
+        paths = (os.path.join(tmp, "census-income.data"), os.path.join(tmp, "census-income.test"))
+        census.write_columns(paths[0], train_cols)
+        census.write_columns(paths[1], test_cols)
+        _log(f"generated census files ({rows}+{n_test} rows) in {time.time() - t0:.1f}s "
+             f"(oracle income {meta['oracle_auc_income']:.4f}, marital "
+             f"{meta['oracle_auc_marital']:.4f})")
+        t0 = time.time()
+        schema, train, val, test = census.create_census_dataset(*paths)
+    _log(f"loader parsed + encoded in {time.time() - t0:.1f}s ({len(schema.sparse)} sparse, "
+         f"{len(schema.dense)} dense fields)")
+    _warm_multitask(schema, train, batch_size, device)
+    return {"rows": rows, "oracle_auc_income": round(meta["oracle_auc_income"], 4),
+            "oracle_auc_marital": round(meta["oracle_auc_marital"], 4),
+            "models": _fit_models(models, schema, train, val, test, ("income", "marital"),
+                                  ("label_income", "label_marital"), ("income", "marital"),
+                                  batch_size, epochs, seed, device)}
 
 
 def logq_softmax(log_q: torch.Tensor | None):
@@ -418,15 +643,20 @@ def run_dssm(users: int = 100_000, items: int = 20_000,
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="recsys_tpu_torch.tools.protocol")
     p.add_argument("mode", help=f"one of {', '.join(MODE_DEFAULTS)}")
-    p.add_argument("--rows", type=int, default=1_000_000, help="ctr rows")
+    p.add_argument("--rows", type=int, default=0,
+                   help="ctr and multitask rows (default 1,000,000), census train rows "
+                        "(default 200,000)")
     p.add_argument("--users", type=int, default=100_000)
     p.add_argument("--items", type=int, default=20_000)
     p.add_argument("--models", default=None,
-                   help=f"ctr: {DEFAULT_CTR_MODELS}; dssm: {DEFAULT_DSSM_MODELS}")
+                   help=f"ctr: {DEFAULT_CTR_MODELS}; dssm: {DEFAULT_DSSM_MODELS}; "
+                        f"multitask: {DEFAULT_MULTITASK_MODELS}; census: "
+                        f"{DEFAULT_CENSUS_MODELS}")
     p.add_argument("--embed-dim", type=int, default=16)
     p.add_argument("--batch-size", type=int, default=0, help="0: the mode's default")
     p.add_argument("--epochs", type=int, default=0, help="0: the mode's default")
-    p.add_argument("--maxlen", type=int, default=50)
+    p.add_argument("--maxlen", type=int, default=0,
+                   help=f"history length (default 50; din {DIN_MAXLEN})")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--patience", type=int, default=1,
                    help="early-stopping patience (ctr); 0 lifts early stopping")
@@ -439,28 +669,39 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="default: the card")
     p.add_argument("--out", default=None, help="also write the JSON report here")
     args = p.parse_args(argv)
-    if args.mode in NOT_PORTED:
-        p.error(f"mode {args.mode!r} is not ported yet (ROADMAP.md {NOT_PORTED[args.mode]})")
     if args.mode not in MODE_DEFAULTS:
         p.error(f"unknown mode {args.mode!r}: choose from {', '.join(MODE_DEFAULTS)}")
-    if args.rows <= 0:
+    if args.rows < 0:
         p.error(f"--rows must be positive, got {args.rows}")
     batch_size = args.batch_size or MODE_DEFAULTS[args.mode][0]
     epochs = args.epochs or MODE_DEFAULTS[args.mode][1]
+    rows = args.rows or MODE_ROWS.get(args.mode)
+    maxlen = args.maxlen or (DIN_MAXLEN if args.mode == "din" else 50)
     if args.mode == "ctr":
-        rep = run_ctr(args.rows, (args.models or DEFAULT_CTR_MODELS).split(","),
+        rep = run_ctr(rows, (args.models or DEFAULT_CTR_MODELS).split(","),
                       args.embed_dim, batch_size, epochs, args.seed,
                       patience=args.patience or None, lr=args.lr,
                       embedding_optimizer=args.embedding_optimizer, teacher=args.teacher,
                       device=args.device)
+    elif args.mode == "ncf":
+        rep = run_ncf(args.users, args.items, batch_size, epochs, args.seed, device=args.device)
     elif args.mode == "sasrec":
-        rep = run_sasrec(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+        rep = run_sasrec(args.users, args.items, maxlen, batch_size, epochs, args.seed,
                          drift_scale=args.drift_scale, device=args.device)
     elif args.mode == "seqret":
-        rep = run_seqret(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+        rep = run_seqret(args.users, args.items, maxlen, batch_size, epochs, args.seed,
                          device=args.device)
+    elif args.mode == "din":
+        rep = run_din(args.users, args.items, maxlen, batch_size, epochs, args.seed,
+                      device=args.device)
+    elif args.mode == "multitask":
+        rep = run_multitask(rows, (args.models or DEFAULT_MULTITASK_MODELS).split(","),
+                            batch_size, epochs, args.seed, device=args.device)
+    elif args.mode == "census":
+        rep = run_census(rows, (args.models or DEFAULT_CENSUS_MODELS).split(","), batch_size,
+                         epochs, args.seed, device=args.device)
     elif args.mode == "mind":
-        rep = run_mind(args.users, args.items, args.maxlen, batch_size, epochs, args.seed,
+        rep = run_mind(args.users, args.items, maxlen, batch_size, epochs, args.seed,
                        device=args.device)
     else:
         rep = run_dssm(args.users, args.items, (args.models or DEFAULT_DSSM_MODELS).split(","),

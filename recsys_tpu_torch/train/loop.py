@@ -89,11 +89,10 @@ class Trainer:
             schemas = {getattr(model, "sparse_key", "sparse"): model.schema}
         self._vocabs = {key: np.asarray([f.vocab_size for f in s.sparse])
                         for key, s in (schemas or {}).items() if s.sparse}
-        # item-id inputs of a sequence or retrieval model (SASRec,
-        # YoutubeDNN): each must index its item table; the JAX package's
-        # gather clamps, a device gather faults
-        self._item_ids = ({k: model.num_items for k in model.id_keys}
-                          if hasattr(model, "id_keys") else {})
+        # {batch key: vocabulary} of a model's other id inputs (SASRec's
+        # items, NCF's users and items, DIN's history): each id must index
+        # its table; the JAX package's gather clamps, a device gather faults
+        self._id_vocabs = dict(getattr(model, "id_vocabs", {}))
         # dropout draws from one generator on the device, seeded here
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         for m in self.model.modules():
@@ -147,7 +146,7 @@ class Trainer:
                 if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
                     raise ValueError(f"sparse ids outside their vocabularies "
                                      f"in rows {s}..{s + valid}")
-            for key, vocab in self._item_ids.items():
+            for key, vocab in self._id_vocabs.items():
                 ids = batch.get(key)
                 if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
                     raise ValueError(f"{key} ids outside [0, {vocab}) in rows "
@@ -184,7 +183,8 @@ class Trainer:
 
     def fit(self, train_data: dict, batch_size: int = 512, epochs: int = 10,
             val_data: dict | None = None, validation_split: float = 0.0,
-            early_stopping_patience: int | None = None, verbose: bool = True) -> dict:
+            early_stopping_patience: int | None = None, verbose: bool = True,
+            eval_fn: Callable | None = None, eval_every: int = 1) -> dict:
         """Train on a dict of aligned numpy arrays (with the label key).
 
         Each epoch reshuffles (a numpy generator seeded by ``seed``) and
@@ -199,7 +199,11 @@ class Trainer:
         ``early_stopping_patience`` epochs in a row have not improved, and
         the best copy is loaded back at the end (also without early
         stopping), as in the JAX package.  The optimizer state and
-        ``self.step`` go on from the last step."""
+        ``self.step`` go on from the last step.
+
+        ``eval_fn(trainer)``, if given, runs after validation on every
+        ``eval_every``-th epoch and returns {metric: float}; each value is
+        appended to ``history[metric]`` and shown on the epoch's line."""
         if validation_split > 0.0 and val_data is None:
             cut = int(_num_examples(train_data) * (1.0 - validation_split))
             val_data = {k: v[cut:] for k, v in train_data.items()}
@@ -233,6 +237,10 @@ class Trainer:
                                   for k, v in self.model.state_dict().items()}
                 else:
                     bad_epochs += 1
+            if eval_fn is not None and (epoch + 1) % eval_every == 0:
+                for k, v in eval_fn(self).items():
+                    history.setdefault(k, []).append(v)
+                    msg += f" {k}={v:.4f}"
             if verbose:
                 print(msg)
             if early_stopping_patience is not None and bad_epochs >= early_stopping_patience:

@@ -1,9 +1,10 @@
 """The port's ``python -m recsys_tpu_torch.cli`` on the CPU: each ported
 task at a few epochs prints the JAX CLI's result line with its metric in
-range (as tests/test_cli.py reads the JAX one); the tasks and flags the
-port does not have yet exit naming their ROADMAP item; and the CLI, the
-protocol runner and the new models import neither JAX nor the JAX
-package."""
+range (as tests/test_cli.py reads the JAX one), din and multitask also on
+review and census files the test writes; the flags the port does not have
+yet exit naming their ROADMAP item; and the CLI, the protocol runner and
+the models import neither JAX, pandas nor the JAX package."""
+import json
 import os
 import re
 import subprocess
@@ -14,6 +15,8 @@ import numpy as np
 import pytest
 
 from recsys_tpu_torch import cli
+from recsys_tpu_torch.data import census
+from recsys_tpu_torch.data.realistic import realistic_census
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -69,16 +72,71 @@ def test_sequence_retrieval_prints_recall(capsys, task):
     assert re.search(r"epoch 2/2 loss=[0-9.]+", out)
 
 
+def test_ncf_prints_hr_and_ndcg_every_second_epoch(capsys):
+    res = cli.main(["ncf", "--epochs", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    lines = re.findall(r"epoch (\d)/4 loss=[0-9.]+( HR@10=([0-9.]+) NDCG@10=([0-9.]+))?\n", out)
+    assert [(e, bool(m)) for e, m, _, _ in lines] == [("1", False), ("2", True), ("3", False),
+                                                      ("4", True)]
+    assert len(res["loss"]) == 4 and np.isfinite(res["loss"]).all()
+    np.testing.assert_allclose(res["HR@10"], [float(lines[1][2]), float(lines[3][2])],
+                               atol=5e-5)  # the lines round to 4 places
+    assert all(0.0 <= n <= h <= 1.0 for h, n in zip(res["HR@10"], res["NDCG@10"]))
+
+
+def _write_reviews(tmp_path) -> list:
+    """A JSON-lines reviews dump and a Python-literal meta dump."""
+    rng = np.random.default_rng(3)
+    with open(tmp_path / "reviews.json", "w") as f:
+        for u in range(80):
+            for t in range(int(rng.integers(3, 12))):
+                f.write(json.dumps({"reviewerID": f"U{u}", "asin": f"B{rng.integers(0, 60):02d}",
+                                    "unixReviewTime": t}) + "\n")
+    with open(tmp_path / "meta.json", "w") as f:
+        for i in range(60):
+            f.write(repr({"asin": f"B{i:02d}", "categories": [["E", f"c{i % 6}"]]}) + "\n")
+    return ["--reviews", str(tmp_path / "reviews.json"), "--meta", str(tmp_path / "meta.json")]
+
+
+def _write_census(tmp_path) -> list:
+    train, test, _ = realistic_census(num_train=3000, num_test=1000, seed=1)
+    census.write_columns(str(tmp_path / "census.data"), train)
+    census.write_columns(str(tmp_path / "census.test"), test)
+    return ["--census", str(tmp_path / "census.data"), str(tmp_path / "census.test")]
+
+
+@pytest.mark.parametrize("files", [False, True], ids=["synthetic", "files"])
+def test_din_prints_test_auc(capsys, tmp_path, files):
+    argv = ["din", "--epochs", "2", *(_write_reviews(tmp_path) if files else [])]
+    auc = _value(_run(capsys, *argv), r"test AUC: ([0-9.]+)\n")
+    assert 0.0 <= auc <= 1.0
+
+
+@pytest.mark.parametrize("model, files", [("esmm", False), ("mmoe", False), ("ple", False),
+                                          ("esmm", True), ("mmoe", True), ("ple", True)],
+                         ids=["esmm", "mmoe", "ple", "esmm-census", "mmoe-census",
+                              "ple-census"])
+def test_multitask_prints_each_heads_auc(capsys, tmp_path, model, files):
+    argv = ["multitask", "--model", model, "--epochs", "1",
+            *(_write_census(tmp_path) if files else [])]
+    out = _run(capsys, *argv)
+    tasks = ("income", "marital") if files else ("ctr", "cvr")
+    heads = ("ctr", "ctcvr") if model == "esmm" else tasks
+    found = re.findall(r"(\w+) AUC: ([0-9.]+)\n", out)
+    assert [h for h, _ in found] == list(heads)
+    assert all(0.0 <= float(v) <= 1.0 for _, v in found)
+
+
+def test_multitask_refuses_models_it_does_not_have():
+    with pytest.raises(SystemExit, match="esmm, mmoe or ple"):
+        cli.main(["multitask", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("argv, item", [
-    (("ncf",), "Queue 1 item 6"),
-    (("din",), "Queue 1 item 7"),
-    (("multitask", "--model", "esmm"), "Queue 1 item 8"),
     (("ctr", "--data", "criteo.csv"), "Queue 1 item 9"),
     (("ctr", "--data", "criteo.csv", "--stream"), "Queue 1 item 9"),
     (("match", "--ml100k", "ml-100k"), "Queue 1 item 9"),
     (("sasrec", "--ratings", "ratings.csv"), "Queue 1 item 9"),
-    (("ctr", "--reviews", "r.json", "--meta", "m.json"), "Queue 1 item 7"),
-    (("ctr", "--census", "train.csv", "test.csv"), "Queue 1 item 8"),
     (("ctr", "--embedding-optimizer", "lazy_adam"), "Queue 1 item 9"),
     (("ctr", "--embedding-optimizer", "rowwise_adagrad"), "Queue 1 item 9"),
     (("ctr", "--embedding-engine", "a2a"), "Queue 1 item 10"),
@@ -100,7 +158,11 @@ def test_entry_points_import_neither_jax_nor_the_jax_package():
     code = ("import sys, recsys_tpu_torch.cli, recsys_tpu_torch.tools.protocol, "
             "recsys_tpu_torch.models.match.mind, recsys_tpu_torch.models.match.two_tower, "
             "recsys_tpu_torch.models.match.fm_match, recsys_tpu_torch.train.export, "
-            "recsys_tpu_torch.data.movielens, recsys_tpu_torch.data.realistic; "
+            "recsys_tpu_torch.data.movielens, recsys_tpu_torch.data.realistic, "
+            "recsys_tpu_torch.data.amazon, recsys_tpu_torch.data.census, "
+            "recsys_tpu_torch.models.match.ncf, recsys_tpu_torch.models.ctr.din, "
+            "recsys_tpu_torch.models.ctr.esmm, recsys_tpu_torch.models.ctr.mmoe, "
+            "recsys_tpu_torch.models.ctr.ple; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu', 'pandas')]; print(bad); "
             "sys.exit(bool(bad))")

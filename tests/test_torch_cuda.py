@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the same inputs (the probe kernels bit for bit, probe_check.py), a small DLRM, SASRec, YoutubeDNN, MIND,
-the two towers, FM-match and the CTR
-protocol models served on the card against the same model on the CPU, and
+the two towers, FM-match, the CTR protocol models, NCF, DIN (PReLU and
+Dice), ESMM, MMoE and PLE served on the card against the same model on the CPU, and
 one training step of each on the card against the same step on the CPU.  They skip inside a fixture
 when there is no card.
 
@@ -22,7 +22,9 @@ import flash_check
 import mlp_bwd_check
 import probe_check
 import retrieval_check
-from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature, VarLenSparseFeature
+from recsys_tpu_torch.core.features import (DenseFeature, FeatureSchema, SparseFeature,
+                                            VarLenSparseFeature)
+from recsys_tpu_torch.data.realistic import din_schema
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.kernels import attention as attn
 from recsys_tpu_torch.kernels import build, dispatch
@@ -32,16 +34,22 @@ from recsys_tpu_torch.kernels import mlp as mlp_ref
 from recsys_tpu_torch.kernels import topk as topk_ref
 from recsys_tpu_torch.kernels.interactions import dot_interaction
 from recsys_tpu_torch.kernels.mlp import mlp_backward, mlp_forward
+from recsys_tpu_torch.models.ctr.din import DIN
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
+from recsys_tpu_torch.models.ctr.esmm import ESMM
+from recsys_tpu_torch.models.ctr.mmoe import MMoE
+from recsys_tpu_torch.models.ctr.ple import PLE
 from recsys_tpu_torch.models.match.fm_match import FMMatch
 from recsys_tpu_torch.models.match.mind import MIND
+from recsys_tpu_torch.models.match.ncf import NCF
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.two_tower import TwoTower
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
 from recsys_tpu_torch.ops.attention import MultiHeadAttention
 from recsys_tpu_torch.ops.interactions import DotInteraction
 from recsys_tpu_torch.tools.protocol import CTR_MODELS, ctr_model_kwargs
-from recsys_tpu_torch.train.losses import in_batch_sampled_softmax, pairwise_bce
+from recsys_tpu_torch.train.losses import (bce_probs, in_batch_sampled_softmax,
+                                           multi_task_bce, pairwise_bce)
 from recsys_tpu_torch.train.loop import Trainer
 from recsys_tpu_torch.train.retrieval import topk_scores, topk_scores_streaming
 from recsys_tpu_torch.train.streaming_embed import host_prep_group
@@ -1148,6 +1156,85 @@ def test_tower_train_step_on_card_matches_cpu(cuda, name):
         **({"fm_pairwise_vector": 1} if name == "fm_match" else {}))
     torch.testing.assert_close(loss.cpu(), cpu.train_step(batch), rtol=1e-5, atol=1e-6)
     assert _share_off(card.model.state_dict(), cpu.model.state_dict()) < 1e-2
+
+
+# -- NCF, DIN, ESMM, MMoE and PLE: no kernel on their paths -------------------
+MT_SCHEMA = FeatureSchema(dense=[DenseFeature(f"I{i}") for i in range(8)],
+                          sparse=[SparseFeature(f"C{i}", v, 16) for i, v in
+                                  enumerate((5000, 300, 3, 1200, 40, 20000))])
+
+
+def _slice_model(name):
+    """(model, loss_fn, batch maker) of this slice's model ``name`` at the
+    protocols' widths, weights from seed 0."""
+    torch.manual_seed(0)
+    if name == "ncf":
+        def batch(rng, n, negs=1):
+            return {"user": rng.integers(0, 3000, n).astype(np.int32),
+                    "pos_item": rng.integers(0, 2000, n).astype(np.int32),
+                    "neg_item": rng.integers(0, 2000, (n, negs)).astype(np.int32)}
+        return NCF(3000, 2000), lambda o, b: pairwise_bce(o["pos_logits"], o["neg_logits"]), batch
+    if name.startswith("din"):
+        def batch(rng, n):
+            hist = rng.integers(1, 3000, (n, 40)).astype(np.int32)
+            hist[np.arange(40)[None, :] < rng.integers(0, 41, n)[:, None]] = 0  # front pads
+            return {"sparse": np.stack([rng.integers(1, 3000, n), rng.integers(1, 200, n)],
+                                       1).astype(np.int32),
+                    "hist": hist, "hist_cate": np.where(hist > 0, hist % 199 + 1, 0).astype(
+                        np.int32),
+                    "label": (rng.random(n) < 0.5).astype(np.float32)}
+        model = DIN(din_schema(3000, 200, 8, 40), ffn_activation=name.split("-")[1])
+        return model, None, batch
+
+    def batch(rng, n):
+        return {"sparse": np.stack([rng.integers(0, f.vocab_size, n) for f in MT_SCHEMA.sparse],
+                                   1).astype(np.int32),
+                "dense": rng.random((n, 8)).astype(np.float32),
+                "click": (rng.random(n) < 0.3).astype(np.float32),
+                "ctcvr": (rng.random(n) < 0.1).astype(np.float32)}
+    if name == "esmm":
+        return (ESMM(MT_SCHEMA, num_user_fields=3),
+                lambda o, b: bce_probs(o["ctr"], b["click"]) + bce_probs(o["ctcvr"], b["ctcvr"]),
+                batch)
+    model = (MMoE if name == "mmoe" else PLE)(MT_SCHEMA, task_names=("click", "ctcvr"))
+    return model, lambda o, b: multi_task_bce(o, {t: b[t] for t in ("click", "ctcvr")}), batch
+
+
+SLICE_MODELS = ["ncf", "din-prelu", "din-dice", "esmm", "mmoe", "ple"]
+
+
+@pytest.mark.parametrize("name", SLICE_MODELS)
+def test_slice_model_predict_on_card_matches_cpu(cuda, name):
+    model, _, make = _slice_model(name)
+    rng = np.random.default_rng(24)
+    data = make(rng, 1500, 100) if name == "ncf" else make(rng, 1500)
+    data = {k: v for k, v in data.items() if k not in ("label", "click", "ctcvr")}
+    want = Trainer(copy.deepcopy(model), device="cpu").predict(data, batch_size=512)
+    card = Trainer(model)
+    dispatch.reset_launches()
+    got = card.predict(data, batch_size=512)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched()
+    for k, w in (want.items() if isinstance(want, dict) else [("out", want)]):
+        g = got[k] if isinstance(got, dict) else got
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("name", SLICE_MODELS)
+def test_slice_model_train_step_on_card_matches_cpu(cuda, name):
+    """One step from the same weights: the loss within 1e-5, the parameters
+    and the BatchNorm statistics as ``_share_off`` holds them."""
+    model, loss_fn, make = _slice_model(name)
+    batch = make(np.random.default_rng(25), 1024)
+    kw = {} if loss_fn is None else {"loss_fn": loss_fn}
+    cpu = Trainer(copy.deepcopy(model), device="cpu", **kw)
+    card = Trainer(model, **kw)
+    dispatch.reset_launches()
+    loss = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES == _launched()
+    torch.testing.assert_close(loss.cpu(), cpu.train_step(batch), rtol=1e-5, atol=1e-6)
+    assert _share_off(card.model.state_dict(), cpu.model.state_dict()) < 1e-3
 
 
 # -- FM bi-interaction and the CTR protocol models ----------------------------

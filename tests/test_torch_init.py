@@ -1,8 +1,8 @@
 """The port's fresh initial weights against the JAX package's, law by law.
 
 For every ported model (DLRM with plain and fused towers, FM, DeepFM,
-Wide&Deep, DeepCrossing, DCN, AutoInt, SASRec, YoutubeDNN) and for
-``FusedMLP``, a JAX init and a port init of the same schema are compared
+Wide&Deep, DeepCrossing, DCN, AutoInt, SASRec, YoutubeDNN, NCF, DIN, ESMM,
+MMoE, PLE) and for ``FusedMLP``, a JAX init and a port init of the same schema are compared
 parameter by parameter, after ``convert``'s layout (tables unpacked, dense
 kernels transposed).  The law of each parameter is the one the JAX package
 draws:
@@ -11,9 +11,11 @@ draws:
 * a dense kernel: flax ``lecun_normal()``, a normal of sd σ = 1/√fan_in
   truncated at 2σ/0.8796 (two sd of the unscaled normal, rescaled);
 * a zero-initialised leaf (biases, first-order weights): exactly 0; a
-  layer norm's scale: exactly 1;
+  layer norm's or batch norm's scale: exactly 1; PReLU's slope: exactly
+  0.25;
 * any other leaf (the normal draws of item tables, positions, dense-field
-  vectors): moments only.
+  vectors, NCF's tables, the expert banks' per-expert lecun normal):
+  moments only.
 
 Each port draw must lie inside the support of its law, and its mean and sd
 must be within 6 standard errors of the JAX draw's (the errors of both
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from recsys_tpu.core.features import FeatureSchema as JaxSchema
+from recsys_tpu.core.features import SparseFeature as JaxSparse
 from recsys_tpu.core.features import VarLenSparseFeature as JaxVarLen
 from recsys_tpu.data.synthetic import synthetic_ctr as jax_synthetic_ctr
 from recsys_tpu.models.ctr.autoint import AutoInt as JaxAutoInt
@@ -37,10 +40,18 @@ from recsys_tpu.models.ctr.fm import FM as JaxFM
 from recsys_tpu.models.ctr.wide_deep import WideDeep as JaxWideDeep
 from recsys_tpu.models.match.sasrec import SASRec as JaxSASRec
 from recsys_tpu.models.match.youtube_dnn import YoutubeDNN as JaxYoutubeDNN
+from recsys_tpu.models.ctr.din import DIN as JaxDIN
+from recsys_tpu.models.ctr.esmm import ESMM as JaxESMM
+from recsys_tpu.models.ctr.mmoe import MMoE as JaxMMoE
+from recsys_tpu.models.ctr.ple import PLE as JaxPLE
+from recsys_tpu.models.match.ncf import NCF as JaxNCF
 from recsys_tpu.ops.mlp import FusedMLP as JaxFusedMLP
-from recsys_tpu_torch.convert import (ctr_params_from_jax, sasrec_params_from_jax,
-                                      youtube_dnn_params_from_jax)
+from recsys_tpu_torch.convert import (ctr_params_from_jax, din_variables_from_jax,
+                                      esmm_params_from_jax, mmoe_params_from_jax,
+                                      ncf_params_from_jax, ple_params_from_jax,
+                                      sasrec_params_from_jax, youtube_dnn_params_from_jax)
 from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
+from recsys_tpu_torch.data.realistic import din_schema
 from recsys_tpu_torch.data.synthetic import synthetic_ctr
 from recsys_tpu_torch.models.ctr.autoint import AutoInt
 from recsys_tpu_torch.models.ctr.dcn import DCN
@@ -48,7 +59,12 @@ from recsys_tpu_torch.models.ctr.deep_crossing import DeepCrossing
 from recsys_tpu_torch.models.ctr.deepfm import DeepFM
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.models.ctr.fm import FM
+from recsys_tpu_torch.models.ctr.din import DIN
+from recsys_tpu_torch.models.ctr.esmm import ESMM
+from recsys_tpu_torch.models.ctr.mmoe import MMoE
+from recsys_tpu_torch.models.ctr.ple import PLE
 from recsys_tpu_torch.models.ctr.wide_deep import WideDeep
+from recsys_tpu_torch.models.match.ncf import NCF
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
@@ -128,9 +144,51 @@ def _fused_mlp():
             for k, v in params.items()}, tm
 
 
+def _ncf():
+    sample = {"user": jnp.zeros((2,), jnp.int32), "pos_item": jnp.zeros((2,), jnp.int32),
+              "neg_item": jnp.zeros((2, 3), jnp.int32)}
+    params = _np_tree(JaxNCF(num_users=3000, num_items=2000).init(jax.random.PRNGKey(0),
+                                                                   sample)["params"])
+    tm = NCF(3000, 2000)
+    return ncf_params_from_jax(params, tm), tm
+
+
+def _din(activation):
+    """DIN's parameters; its BatchNorm buffers start at flax's statistics
+    (mean 0, var 1)."""
+    vocabs, maxlen = (3000, 200), 40
+    jschema = JaxSchema(
+        sparse=[JaxSparse("item", vocabs[0], EMBED), JaxSparse("cate", vocabs[1], EMBED)],
+        varlen=[JaxVarLen("hist_item", vocabs[0], EMBED, max_len=maxlen, shared_with="item"),
+                JaxVarLen("hist_cate", vocabs[1], EMBED, max_len=maxlen, shared_with="cate")])
+    sample = {"sparse": jnp.ones((4, 2), jnp.int32), "hist": jnp.ones((4, maxlen), jnp.int32),
+              "hist_cate": jnp.ones((4, maxlen), jnp.int32)}
+    variables = JaxDIN(jschema, ffn_activation=activation).init(jax.random.PRNGKey(0), sample)
+    tm = DIN(din_schema(*vocabs, EMBED, maxlen), ffn_activation=activation)
+    state = din_variables_from_jax(_np_tree(variables["params"]),
+                                   _np_tree(variables["batch_stats"]), tm)
+    for name, buf in tm.state_dict().items():  # the persistent buffers
+        if name not in dict(tm.named_parameters()):
+            assert torch.equal(buf, state.pop(name)), name
+    return state, tm
+
+
+def _multitask(name):
+    jcls, tcls, convert = {"esmm": (JaxESMM, ESMM, esmm_params_from_jax),
+                           "mmoe": (JaxMMoE, MMoE, mmoe_params_from_jax),
+                           "ple": (JaxPLE, PLE, ple_params_from_jax)}[name]
+    jschema, schema, sample = _ctr_data()
+    kw = {"num_user_fields": 2} if name == "esmm" else {}
+    params = _np_tree(jcls(jschema, **kw).init(jax.random.PRNGKey(0), sample)["params"])
+    tm = tcls(schema, **kw)
+    return convert(params, tm), tm
+
+
 MAKERS = {"dlrm": lambda: _dlrm(False), "dlrm-fused": lambda: _dlrm(True),
             **{name: (lambda n=name: _ctr(n)) for name in CTR_OPTIONS},
-            "sasrec": _sasrec, "youtube_dnn": _youtube, "fused_mlp": _fused_mlp}
+            "sasrec": _sasrec, "youtube_dnn": _youtube, "fused_mlp": _fused_mlp,
+            "ncf": _ncf, "din-prelu": lambda: _din("prelu"), "din-dice": lambda: _din("dice"),
+            **{name: (lambda n=name: _multitask(n)) for name in ("esmm", "mmoe", "ple")}}
 
 
 def _laws(model) -> dict:
@@ -182,7 +240,7 @@ def test_fresh_init_draws_the_jax_laws(case):
         got = port_state[name].detach().double().numpy().ravel()
         want = jax_state[name].double().numpy().ravel()
         assert got.size == want.size, name
-        if not want.any() or (want == 1.0).all():  # zeros, or a layer norm's ones
+        if not want.any() or (want == want[0]).all():  # zeros, a norm's ones, PReLU's 0.25
             np.testing.assert_array_equal(got, want, err_msg=f"{name}: not the constant")
             continue
         law = laws.get(name, ("normal",))

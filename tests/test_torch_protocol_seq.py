@@ -2,8 +2,7 @@
 ``dssm``) on the CPU at 300 users, 150 items and one epoch: each report has
 the JAX report's keys (from the JAX package's own records in
 ``artifacts/``) plus ``fit_examples_per_s``, with finite values in range;
-``--out`` writes the report; the modes the port has not taken are refused
-naming their ROADMAP item."""
+``--out`` writes the report; an unknown mode is refused."""
 import json
 import math
 from pathlib import Path
@@ -49,14 +48,16 @@ def test_mode_report_has_the_jax_reports_keys(tmp_path, capsys, mode):
 
 
 def test_modes_take_the_jax_runners_batch_and_epochs():
-    assert protocol.MODE_DEFAULTS == {"ctr": (512, 10), "sasrec": (256, 5),
-                                      "seqret": (1024, 5), "mind": (1024, 5),
-                                      "dssm": (2048, 4)}
+    assert protocol.MODE_DEFAULTS == {"ctr": (512, 10), "ncf": (1024, 8), "sasrec": (256, 5),
+                                      "seqret": (1024, 5), "din": (1024, 3),
+                                      "multitask": (512, 5), "mind": (1024, 5),
+                                      "dssm": (2048, 4), "census": (512, 5)}
+    assert protocol.MODE_ROWS == {"ctr": 1_000_000, "multitask": 1_000_000,
+                                  "census": 200_000}
+    assert protocol.DIN_MAXLEN == 40
 
 
-@pytest.mark.parametrize("mode, item", [("ncf", "Queue 1 item 6"), ("din", "Queue 1 item 7"),
-                                        ("multitask", "Queue 1 item 8"),
-                                        ("census", "Queue 1 item 8"), ("nope", "choose from")])
+@pytest.mark.parametrize("mode, item", [("nope", "choose from")])
 def test_unported_modes_are_refused(capsys, mode, item):
     with pytest.raises(SystemExit):
         protocol.main([mode, "--device", "cpu"])
