@@ -204,6 +204,25 @@ checkout.  Phases, one JSON line each:
                 1 epoch: each prints its JSON line, launches no kernel and
                 reports metrics in [0, 1].  A line gives the seconds of
                 16d, 16e, 24d, 24e and the new cli tasks.
+24f. files   -- the file-fed training path on Criteo files written from
+                the seed (two TSVs of 131,072 rows, one of 65,536 held
+                out, a 20,000-row CSV with a header): parse_criteo against
+                its 8192-row chunks and the first 1000 rows against a
+                Python parse with a Python FNV-1a; cli ctr --model dlrm
+                --bf16 --embed-dim 16 --data GLOB --stream
+                --embedding-optimizer fused_adam (26 tables of 2^20 x 16,
+                batch 4096, one epoch), its first 3 steps held against the
+                plain step, #1 and #4 counted, steps a second; the
+                streaming evaluate_auc over the held-out file against the
+                array path (within 1e-6, above 0.6); the same model with
+                rowwise_adagrad and lazy_adam, 3 steps each against the
+                CPU in lockstep, rows outside each batch bit-unchanged,
+                step ms; fused_rowwise_adagrad fit over 3 batches (#5
+                counted); at 2^16 buckets a fit with checkpoint_path and
+                log_jsonl, restore, predictions bit-equal, the next step
+                against the saved trainer's; cli ctr --model deepfm --data
+                CSV (#6), ncf --ratings, match --ml100k, sasrec --ratings.
+                Its seconds go on the slice seconds line.
 25. kernels  -- the total time, then one line naming every kernel with its
                 launches and times.
 
@@ -298,6 +317,12 @@ STEP_STATE_SHARE = 1e-3
 #   The dense params' Adam first moment, whose step adds 10% of the
 #   gradient: per tensor, the norm of the difference over the norm.
 STEP_MOMENT_RTOL = 1e-2
+#   The same step on the card and on the CPU (the files phase's
+#   touched-rows kinds): the two devices' bf16 roundings compound down the
+#   backward, from 0.4% of the norm at the top tower's last layers to 1.7%
+#   at the bottom tower's first (read on an H100 80GB HBM3 at 700 W); a
+#   gradient 20% short reads 0.2.
+CROSS_MOMENT_RTOL = 5e-2
 
 # SASRec at the bench.py widths (bench.py:258-315)
 SAS_ITEMS = 50_000
@@ -906,7 +931,7 @@ def plain_logits(model, batch):
     fe = model.embedding(batch["sparse"]).to(model.compute_dtype)
     dense = batch["dense"]
     b = fe.shape[0]
-    nm = MICROBATCH if b % MICROBATCH == 0 else 1
+    nm = model.dense_microbatch if b % model.dense_microbatch == 0 else 1
     bs = b // nm
     out = []
     for i in range(nm):
@@ -1085,6 +1110,25 @@ def share_not_close(got, want, tol: dict) -> float:
                  .double().mean())
 
 
+def moment_errors(trainer, ref) -> tuple[dict, dict]:
+    """Per dense parameter with a gradient: the norm of the difference of
+    ``trainer``'s Adam first moment from ``ref``'s (which may lie on
+    another device) over the norm of ``ref``'s, and the same had
+    ``trainer``'s gradient been 20% short.  The first moment follows the
+    gradient, where Adam's update normalises it away."""
+    moments, short = {}, {}
+    b1 = trainer.optimizer.param_groups[0]["betas"][0]
+    for (k, pk), pp in zip(trainer.model.named_parameters(), ref.model.parameters()):
+        if pk.grad is None:
+            continue
+        mk = trainer.optimizer.state[pk]["exp_avg"]
+        mp = ref.optimizer.state[pp]["exp_avg"].to(mk.device)
+        norm = float(mp.norm())
+        moments[k] = float((mk - mp).norm()) / norm
+        short[k] = float((mk - (1 - b1) * 0.2 * pk.grad - mp).norm()) / norm
+    return moments, short
+
+
 def compare_step(name, trainer, ref, loss_k, loss_p) -> dict:
     """One train step through the kernels (``trainer``) against the same
     step through the plain versions (``ref``), from copies of one state."""
@@ -1103,18 +1147,8 @@ def compare_step(name, trainer, ref, loss_k, loss_p) -> dict:
                     for g in groups for k, v in trainer.emb_state[g].items()}
     out["worst_state_share"] = max(state_shares.values())
     ok &= out["worst_state_share"] <= STEP_STATE_SHARE
-    # the dense Adam's first moment follows the gradient (its update
-    # normalises the gradient away); a gradient 20% short must show
-    moments, short = {}, {}
-    b1 = trainer.optimizer.param_groups[0]["betas"][0]
-    for (k, pk), pp in zip(trainer.model.named_parameters(), ref.model.parameters()):
-        if pk.grad is None:
-            continue
-        mk = trainer.optimizer.state[pk]["exp_avg"]
-        mp = ref.optimizer.state[pp]["exp_avg"]
-        norm = float(mp.norm())
-        moments[k] = float((mk - mp).norm()) / norm
-        short[k] = float((mk - (1 - b1) * 0.2 * pk.grad - mp).norm()) / norm
+    # the dense Adam's first moment; a gradient 20% short must show
+    moments, short = moment_errors(trainer, ref)
     out["worst_moment_rel_err"] = max(moments.values())
     out["grad_x0.8_least_moment_rel_err"] = min(short.values())
     ok &= out["worst_moment_rel_err"] <= STEP_MOMENT_RTOL < out["grad_x0.8_least_moment_rel_err"]
@@ -1630,14 +1664,7 @@ def compare_sasrec_step(name, trainer, ref, loss_k, loss_p, label="sasrec") -> d
     shares = {k: share_off(got_sd[k], want_sd[k], LR / 10) for k in want_sd}
     out["worst_param_share"] = max(shares.values())
     ok &= out["worst_param_share"] <= SAS_P_SHARE
-    moments, short = {}, {}
-    b1 = trainer.optimizer.param_groups[0]["betas"][0]
-    for (k, pk), pp in zip(trainer.model.named_parameters(), ref.model.parameters()):
-        mk = trainer.optimizer.state[pk]["exp_avg"]
-        mp = ref.optimizer.state[pp]["exp_avg"].to(mk.device)
-        norm = float(mp.norm())
-        moments[k] = float((mk - mp).norm()) / norm
-        short[k] = float((mk - (1 - b1) * 0.2 * pk.grad - mp).norm()) / norm
+    moments, short = moment_errors(trainer, ref)
     out["worst_moment_rel_err"] = max(moments.values())
     out["grad_x0.8_least_moment_rel_err"] = min(short.values())
     ok &= out["worst_moment_rel_err"] <= SAS_MOMENT_RTOL < out["grad_x0.8_least_moment_rel_err"]
@@ -2980,6 +3007,562 @@ def phase_protocol_mt(dev) -> dict:
     return out
 
 
+# the files phase: Criteo files written from the seed and the CLI's file flags
+FILES_TRAIN_ROWS = 131_072   # two training files of this many rows
+FILES_HELD_ROWS = 65_536     # and one held out
+FILES_CSV_ROWS = 20_000      # the comma-separated file with a header
+FILES_BATCH = 4096
+FILES_BUCKETS = 1 << 20      # the stream's default: 26 tables of 2^20 x 16 f32
+FILES_CKPT_BUCKETS = 1 << 16
+FILES_CHUNK = 8192
+FILES_CHECKED_STEPS = 3
+FILES_AUC_FLOOR = 0.6
+
+
+def criteo_columns(rng, rows: int, csv_digits: bool = False) -> list:
+    """Criteo rows as 40 columns of text: a label from a logistic teacher on
+    I1, I2 and the tokens of C1 and C2, 13 integer columns (I3..I13 with
+    some empty) and 26 hex tokens of Zipf-drawn ids (some empty).  With
+    ``csv_digits`` C3 holds all-digit tokens with gaps."""
+    vocab = np.geomspace(8, 50_000, 26).astype(np.int64)
+    ids = (rng.zipf(1.3, (rows, 26)) - 1) % vocab
+    dense = rng.integers(0, 100, (rows, 13))
+    w = [rng.standard_normal(int(vocab[f])) for f in (0, 1)]
+    logit = (4.0 * (dense[:, 0] / 99 - 0.5) - 3.0 * (dense[:, 1] / 99 - 0.5)
+             + w[0][ids[:, 0]] + w[1][ids[:, 1]] - 1.0)
+    label = (rng.random(rows) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int64)
+    numbers = np.asarray([str(i) for i in range(100)], dtype=object)
+    cols = [numbers[label].tolist()]
+    for j in range(13):
+        col = numbers[dense[:, j]]
+        if j >= 2:
+            col = np.where(rng.random(rows) < 0.08, "", col)
+        cols.append(col.tolist())
+    for f in range(26):
+        table = np.asarray([f"{f * 1_000_003 + i:08x}" for i in range(int(vocab[f]))],
+                           dtype=object)
+        col = table[ids[:, f]]
+        if csv_digits and f == 2:
+            col = np.asarray([str(int(i) * 7) for i in range(int(vocab[f]))],
+                             dtype=object)[ids[:, f]]
+        cols.append(np.where(rng.random(rows) < 0.04, "", col).tolist())
+    return cols
+
+
+def write_criteo(path: str, cols: list, sep: str, header: bool = False) -> None:
+    with open(path, "w") as f:
+        if header:
+            f.write(sep.join(["label", *(f"I{i}" for i in range(1, 14)),
+                              *(f"C{i}" for i in range(1, 27))]) + "\n")
+        f.write("\n".join(sep.join(r) for r in zip(*cols)) + "\n")
+
+
+def fnv1a64(token: bytes) -> int:
+    h = 1469598103934665603
+    for b in token:
+        h = ((h ^ b) * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def plain_parse(path: str, rows: int, buckets: int) -> tuple:
+    """The first ``rows`` rows of a headerless TSV parsed in Python: label
+    and dense values as floats (0 where empty), each categorical its
+    FNV-1a 64 hash modulo ``buckets``."""
+    labels, dense, sparse = [], [], []
+    with open(path, "rb") as f:
+        for line in f:
+            fields = line.rstrip(b"\r\n").split(b"\t")[:40]
+            labels.append(float(fields[0] or 0))
+            dense.append([float(x or 0) for x in fields[1:14]])
+            sparse.append([fnv1a64(x) % buckets for x in fields[14:40]])
+            if len(labels) == rows:
+                break
+    return (np.asarray(labels, np.float32), np.asarray(dense, np.float32),
+            np.asarray(sparse, np.int32))
+
+
+def phase_files_parse(paths: list) -> dict:
+    """``parse_criteo`` of a file against its chunks from ``parse_criteo_chunk``
+    at FILES_CHUNK rows, and its first 1000 rows against ``plain_parse``;
+    bit for bit."""
+    from recsys_tpu_torch.data import native
+
+    parse_s = []
+    for _ in range(2):  # the file was just written: both reads are warm
+        t0 = time.perf_counter()
+        whole = native.parse_criteo(paths[0], sep="\t", skip_header=False)
+        parse_s.append(time.perf_counter() - t0)
+    parts, off, out = [], 0, native.new_buffers(FILES_CHUNK)
+    while True:
+        got, off = native.parse_criteo_chunk(paths[0], off, FILES_CHUNK, sep="\t",
+                                             skip_header=False, out=out)
+        if len(got[0]) == 0:
+            break
+        parts.append(tuple(a.copy() for a in got))
+    plain = plain_parse(paths[0], 1000, native.DEFAULT_BUCKETS)
+    ok = len(whole[0]) == FILES_TRAIN_ROWS and all(
+        np.array_equal(np.concatenate([p[j] for p in parts]), whole[j])
+        and np.array_equal(whole[j][:1000], plain[j]) for j in range(3))
+    res = {"phase": "check", "case": "files parser: whole file vs chunks vs plain Python",
+           "rows": len(whole[0]), "chunks": len(parts), "parse_seconds": parse_s,
+           "rows_per_s": len(whole[0]) / min(parse_s), "ok": ok}
+    emit(res)
+    if not ok:
+        raise AssertionError(f"files: the parser disagrees: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def checked_steps(record: dict, n: int):
+    """``Trainer.train_step`` patched so that its first ``n`` calls are each
+    held against the same step through the plain versions (a copy of the
+    trainer taken just before, stepped by ``plain_train_step``; the
+    comparison launches nothing); ``record`` keeps the trainer, the
+    comparisons and the clock after the last of them."""
+    import torch
+
+    from recsys_tpu_torch.train.loop import Trainer
+
+    orig = Trainer.train_step
+
+    def step(self, batch):
+        record["trainer"] = self
+        checks = record.setdefault("checks", [])
+        if len(checks) >= n:
+            return orig(self, batch)
+        ref = copy.deepcopy(self)
+        loss_k = orig(self, batch)
+        loss_p = plain_train_step(ref, batch)
+        checks.append(compare_step(f"stream fit step {len(checks) + 1}", self, ref, loss_k,
+                                   loss_p))
+        del ref
+        torch.cuda.synchronize()
+        record["checked_at"] = time.perf_counter()
+        return loss_k
+
+    Trainer.train_step = step
+    try:
+        yield record
+    finally:
+        Trainer.train_step = orig
+
+
+def phase_files_stream(paths: list, held: str) -> dict:
+    """``cli ctr --model dlrm --bf16 --embed-dim 16 --data GLOB --stream
+    --embedding-optimizer fused_adam`` over the two training files, one
+    epoch of 4096-row batches: its first steps held against the plain
+    step, every launch counted, the steps a second after them; then
+    ``evaluate_auc`` over the held-out file as a stream against the array
+    path on the same rows."""
+    import torch
+
+    from recsys_tpu_torch.data.streaming import CriteoStream
+    from recsys_tpu_torch.kernels import dispatch
+
+    steps = 2 * FILES_TRAIN_ROWS // FILES_BATCH
+    glob = str(Path(paths[0]).parent / "day_*.txt")
+    record = {}
+    with checked_steps(record, FILES_CHECKED_STEPS):
+        run = cli_run(["ctr", "--model", "dlrm", "--bf16", "--embed-dim", str(EMBED_DIM),
+                       "--data", glob, "--stream", "--embedding-optimizer", "fused_adam",
+                       "--epochs", "1", "--batch-size", str(FILES_BATCH)],
+                      {"dot_interaction": steps, "embedding_adam": steps},
+                      "cli ctr --data GLOB --stream")
+    end = time.perf_counter()
+    trainer = record["trainer"]
+    tables = trainer.tables()
+    if len(tables) != NUM_SPARSE or any(t.shape != (FILES_BUCKETS, EMBED_DIM)
+                                        for t in tables.values()):
+        raise AssertionError(f"files: tables {[tuple(t.shape) for t in tables.values()]}")
+    table_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    run.pop("result")
+
+    stream = CriteoStream(held, batch_size=FILES_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    auc_stream = trainer.evaluate_auc(stream)
+    torch.cuda.synchronize()
+    auc_s = time.perf_counter() - t0
+    auc_launches = dict(dispatch.LAUNCHES)
+    batches = list(stream)
+    arrays = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+    auc_array = trainer.evaluate_auc(arrays)
+    # where a step's time goes: a pass over the stream alone (parse, scale,
+    # shuffle), the host prep of a batch, and a step from a prepped batch
+    t0 = time.perf_counter()
+    passed = sum(1 for _ in CriteoStream(glob, batch_size=FILES_BATCH))
+    stream_s = time.perf_counter() - t0
+    batch = next(iter(stream))
+    prep_ms, step_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        prepped = dict(batch, **trainer._prep(batch["sparse"]))
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(prepped)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    # the device half of a prepped step: the batch's copy to the card alone,
+    # one step traced and split by kernel, and #4 alone at these shapes
+    copy_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db = trainer._to_device(prepped)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_call(lambda: (trainer.train_step(prepped), torch.cuda.synchronize()),
+                        classify=files_category)
+    emit({"phase": "profile", "config": "files stream: one prepped step", **prof})
+    adam = files_adam_timing(trainer, db)
+    ok = abs(auc_stream - auc_array) <= 1e-6 and auc_stream > FILES_AUC_FLOOR
+    res = {"phase": "files stream", "rows": 2 * FILES_TRAIN_ROWS, "steps": steps,
+           "buckets": FILES_BUCKETS, "table_bytes": table_bytes,
+           "table_and_adam_bytes": 3 * table_bytes, "fit_seconds": run["seconds"],
+           "checked_steps": FILES_CHECKED_STEPS,
+           "steps_per_s_after_checked": (steps - FILES_CHECKED_STEPS) / (
+               end - record["checked_at"]),
+           "launches": run["launches"], "final_line": run["line"],
+           "heldout_rows": len(arrays["label"]), "heldout_auc_stream": auc_stream,
+           "heldout_auc_array": auc_array, "auc_seconds": auc_s,
+           "stream_alone_batches_per_s": passed / stream_s,
+           "prep_ms_median": float(np.median(prep_ms)),
+           "step_ms_median": float(np.median(step_ms)), "step_ms_min": float(np.min(step_ms)),
+           "batch_bytes": sum(v.numel() * v.element_size() for v in db.values()),
+           "copy_to_card_ms_median": float(np.median(copy_ms)), "step_profile": prof,
+           "embedding_adam": adam, "auc_launches": auc_launches, "ok": ok}
+    emit(res)
+    print(f"files stream: {res['steps_per_s_after_checked']:.1f} steps/s over the stream "
+          f"(batch {FILES_BATCH}; the stream alone {res['stream_alone_batches_per_s']:.1f} "
+          f"batches/s, prep {res['prep_ms_median']:.2f} ms, a prepped step "
+          f"{res['step_ms_median']:.2f} ms, its copy to the card "
+          f"{res['copy_to_card_ms_median']:.2f} ms, #4 alone {adam['ms']:.2f} ms against a "
+          f"bound of {adam['bound_ms']:.2f} ms), held-out AUC {auc_stream:.4f}", flush=True)
+    if not ok:
+        raise AssertionError(f"files: held-out AUC {auc_stream} (array path {auc_array})")
+    return res
+
+
+def files_category(name: str) -> str:
+    """``ctr_category``, with #4's kernel a category of its own."""
+    return "#4 fused Adam" if "adam_kernel" in name else ctr_category(name)
+
+
+def files_adam_timing(trainer, db: dict) -> dict:
+    """#4 alone on the stream fit's tables (NUM_SPARSE of FILES_BUCKETS x
+    EMBED_DIM f32, with m and v) and one prepped batch's ids (``db``, on
+    the card), with a bf16 cotangent: the one launch of a step against its
+    plain version table by table, and the bound: p, m and v read and
+    written, and of the batch the cotangent rows of its real occurrences,
+    their ids and the chunk pointers read once."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import embedding_update as emb_ref
+    from recsys_tpu_torch.train.streaming_embed import DEFAULT_BLOCK
+
+    tables, plan = trainer.tables(), trainer.plan
+    gen = torch.Generator(device=trainer.device).manual_seed(4)
+    cot_all = torch.randn(FILES_BATCH * NUM_SPARSE, EMBED_DIM, generator=gen,
+                          device=trainer.device)
+    args = []
+    nbytes = nops = 0
+    for g, name in enumerate(plan.table_names):
+        t, st = tables[name], trainer.emb_state[name]
+        ptr = db[f"embaux{g}_ptr"]
+        args.append((t, st["m"], st["v"], cot_all.index_select(0, db[f"embaux{g}_src"]).bfloat16(),
+                     db[f"embaux{g}_ids"], ptr, min(DEFAULT_BLOCK, t.shape[0])))
+        nbytes += 6 * 4 * t.numel() + FILES_BATCH * (EMBED_DIM * 2 + 4) + ptr.numel() * 4
+        nops += 16 * t.numel()
+    p, m, v, cot, ids, ptrs, blocks = (list(x) for x in zip(*args))
+    step = trainer.step + 1
+
+    def plain():
+        for a in args:
+            emb_ref.fused_adam(*a[:6], step, block=a[6], lr=LR)
+
+    res = {"ms": cuda_ms(lambda: dispatch.fused_embedding_adam_pass(
+               p, m, v, cot, ids, ptrs, step, blocks=blocks, lr=LR), iters=10, warmup=2),
+           "plain_ms": cuda_ms(plain, iters=1, warmup=1), "library_ms": None,
+           "tables": [len(args), FILES_BUCKETS, EMBED_DIM], "ids": FILES_BATCH,
+           "bytes": nbytes}
+    res["bound_ms"], res["bound_by"] = bound(nbytes, nops, F32_FLOPS)
+    emit({"phase": "timing", "kernel": "embedding_adam at the stream's shapes", **res})
+    return res
+
+
+def sparse_kind_steps(kind: str, schema, batches: list, dev) -> dict:
+    """DLRM (bf16, D = 16, 2^20 buckets) with the touched-rows ``kind``: the
+    batches stepped on the card and on a copy on the CPU, the tables and
+    their state in lockstep, the dense parameters and their Adam state
+    copied from the card before each step.  Each step's loss is held to
+    LOGIT_TOL and the tables and their state, which ``kind`` updates, to
+    the train phase's shares.  The dense parameters (torch's Adam) are held
+    by their Adam first moment, as ``compare_step`` holds them: per tensor
+    within CROSS_MOMENT_RTOL of the CPU's in norm, where a gradient 20%
+    short must fall outside.  Their cells are not held by share: in its
+    first steps Adam moves every cell by about ±lr whatever its gradient's
+    size, so the two devices' bf16 roundings, which flip the sign of
+    gradients within their noise of 0, set a few percent of a tensor's
+    cells 2·lr apart; the share and the largest difference are reported.
+    The rows outside each batch stay bit-unchanged on the card.  Then the
+    step ms."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+    from recsys_tpu_torch.train.loop import Trainer
+
+    torch.manual_seed(0)
+    model = DLRM(schema, compute_dtype=torch.bfloat16, sparse_embed_grads=True, device=dev)
+    card = Trainer(model, learning_rate=LR, embedding_optimizer=kind)
+    cpu = Trainer(copy.deepcopy(model).cpu(), learning_rate=LR, embedding_optimizer=kind,
+                  device="cpu")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    checks = []
+    for i, batch in enumerate(batches, start=1):
+        before = {n: (t.clone(), {k: v.clone() for k, v in card.emb_state[n].items()})
+                  for n, t in card.tables().items()}
+        cpu.model.load_state_dict({k: v for k, v in card.model.state_dict().items()
+                                   if not k.startswith("embedding.")}, strict=False)
+        cpu.optimizer.load_state_dict(copy.deepcopy(card.optimizer.state_dict()))
+        loss = card.train_step(batch)
+        want = cpu.train_step(batch)
+        ok = bool(torch.isclose(loss.cpu().double(), want.double(), **LOGIT_TOL))
+        cpu_sd = cpu.model.state_dict()
+        shares = {k: share_off(v, cpu_sd[k], STEP_P_THRESH)
+                  for k, v in card.model.state_dict().items()}
+        dense_max = max(float((v.double() - cpu_sd[k].to(dev).double()).abs().max())
+                        for k, v in card.model.state_dict().items()
+                        if not k.startswith("embedding."))
+        state = {f"{n}.{k}": share_not_close(v, cpu.emb_state[n][k], STEP_STATE_TOL[k])
+                 for n, st in card.emb_state.items() for k, v in st.items()}
+        moments, short = moment_errors(card, cpu)
+        unchanged = True
+        sparse = torch.from_numpy(batch["sparse"]).to(dev)
+        for g, (n, t) in enumerate(card.tables().items()):
+            cols, offs = card.plan.group_cols[g], card.plan.group_offsets[g]
+            hit = torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
+            for j, off in zip(cols, offs):
+                hit[sparse[:, j].long() + off] = True
+            old_t, old_st = before[n]
+            unchanged &= torch.equal(t[~hit], old_t[~hit])
+            unchanged &= all(torch.equal(v[~hit], old_st[k][~hit])
+                             for k, v in card.emb_state[n].items())
+        out = {"step": i, "loss": float(loss), "cpu_loss": float(want),
+               "worst_table_share": max(v for k, v in shares.items()
+                                        if k.startswith("embedding.")),
+               "worst_dense_share": max(v for k, v in shares.items()
+                                        if not k.startswith("embedding.")),
+               "dense_max_abs_diff": dense_max,
+               "worst_moment_rel_err": max(moments.values()),
+               "grad_x0.8_least_moment_rel_err": min(short.values()),
+               "worst_state_share": max(state.values()), "untouched_rows_unchanged": unchanged}
+        out["ok"] = (ok and out["worst_table_share"] <= STEP_P_SHARE
+                     and out["dense_max_abs_diff"] <= 2 * LR * 1.001
+                     and out["worst_moment_rel_err"] <= CROSS_MOMENT_RTOL
+                     < out["grad_x0.8_least_moment_rel_err"]
+                     and out["worst_state_share"] <= STEP_STATE_SHARE and unchanged)
+        emit({"phase": "check", "case": f"files {kind} step card vs cpu", **out,
+              "moment_rel_err_limit": CROSS_MOMENT_RTOL})
+        if not out["ok"]:
+            raise AssertionError(f"files {kind} step {i}: {out}, params {shares}, "
+                                 f"state {state}, moments {moments}, "
+                                 f"moments of a short gradient {short}")
+        checks.append(out)
+        del before
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    if launches != ctr_expected({"dot_interaction": len(batches)}):
+        raise AssertionError(f"files {kind}: launches {launches}")
+    ms = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.train_step(batches[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res = {"phase": "files sparse", "kind": kind, "launches": launches, "checks": checks,
+           "step_ms_median": float(np.median(ms)), "step_ms_min": float(np.min(ms))}
+    print(f"files {kind}: {res['step_ms_median']:.2f} ms a {FILES_BATCH}-row step "
+          "(median of 7)", flush=True)
+    emit(res)
+    return res
+
+
+def phase_files_fused_adagrad(schema, batches: list, dev) -> dict:
+    """DLRM with ``fused_rowwise_adagrad``: ``fit`` over a callable stream of
+    the batches, every launch of #5 counted, then one more step held
+    against the plain step."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+    from recsys_tpu_torch.train.loop import Trainer
+
+    torch.manual_seed(0)
+    trainer = Trainer(DLRM(schema, compute_dtype=torch.bfloat16, sparse_embed_grads=True,
+                           device=dev), learning_rate=LR,
+                      embedding_optimizer="fused_rowwise_adagrad")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    hist = trainer.fit(lambda: iter(batches), epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    want = ctr_expected({"dot_interaction": len(batches),
+                         "embedding_rowwise_adagrad": NUM_SPARSE * len(batches)})
+    if launches != want or not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"files fused rowwise adagrad: launches {launches}, expected "
+                             f"{want}, loss {hist['loss']}")
+    ref = copy.deepcopy(trainer)
+    cmp = compare_step("files fused_rowwise_adagrad", trainer, ref,
+                       trainer.train_step(batches[0]), plain_train_step(ref, batches[0]))
+    res = {"phase": "files fused rowwise adagrad", "launches": launches, "step_check": cmp,
+           "epoch_loss": hist["loss"][0]}
+    emit(res)
+    return res
+
+
+def phase_files_checkpoint(paths: list, held: str, tmp: str, dev) -> dict:
+    """At 2^16 buckets: ``fit`` over the training stream with
+    ``checkpoint_path`` and ``log_jsonl``, ``restore`` into a fresh
+    Trainer, its predictions bit-equal to the saved trainer's and the next
+    step held against the saved trainer's next step."""
+    import torch
+
+    from recsys_tpu_torch.data.streaming import CriteoStream
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+    from recsys_tpu_torch.train import checkpoint
+    from recsys_tpu_torch.train.loop import Trainer
+
+    stream = CriteoStream(paths, batch_size=FILES_BATCH, cat_buckets=FILES_CKPT_BUCKETS)
+
+    def make(seed):
+        torch.manual_seed(seed)
+        return Trainer(DLRM(stream.schema, compute_dtype=torch.bfloat16, sparse_embed_grads=True,
+                            device=dev), learning_rate=LR, embedding_optimizer="fused_adam")
+
+    saved = make(0)
+    path, log = f"{tmp}/ckpt/best.pt", f"{tmp}/log.jsonl"
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    hist = saved.fit(stream, epochs=1, checkpoint_path=path, log_jsonl=log, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    steps = stream.num_rows // FILES_BATCH
+    if launches != ctr_expected({"dot_interaction": steps, "embedding_adam": steps}):
+        raise AssertionError(f"files checkpoint fit: launches {launches}")
+    restored = make(1)
+    t0 = time.perf_counter()
+    checkpoint.restore(path, restored)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    batch = next(iter(CriteoStream(held, batch_size=FILES_BATCH, cat_buckets=FILES_CKPT_BUCKETS,
+                                   shuffle=False)))
+    same = np.array_equal(restored.predict(batch), saved.predict(batch))
+    cmp = compare_step("files checkpoint: restored vs saved", restored, saved,
+                       restored.train_step(batch), saved.train_step(batch))
+    recs = [json.loads(line) for line in Path(log).read_text().splitlines()]
+    keys_ok = [sorted(r) for r in recs] == [["epoch", "epoch_seconds", "loss", "step"]] and \
+        recs[0]["step"] == steps
+    res = {"phase": "files checkpoint", "buckets": FILES_CKPT_BUCKETS, "steps": steps,
+           "file_bytes": Path(path).stat().st_size, "fit_seconds": fit_s,
+           "restore_seconds": restore_s, "predictions_bit_equal": same, "next_step": cmp,
+           "log_jsonl": recs, "launches": launches, "epoch_loss": hist["loss"][0],
+           "ok": same and keys_ok}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"files checkpoint: {res}")
+    return res
+
+
+def phase_files_cli(csv_path: str) -> dict:
+    """``cli ctr --model deepfm --data`` the comma-separated file (the
+    label-encode path; the fm kernel once a forward), ``ncf --ratings``,
+    ``match --model dssm --ml100k`` and ``sasrec --ratings`` on the
+    committed assets, each with exactly its path's launches."""
+    from recsys_tpu_torch.data.movielens import build_sasrec_dataset, read_ratings
+
+    assets = ROOT / "tests" / "assets"
+    out = {}
+    fit_n = int(int(FILES_CSV_ROWS * 0.8) * 0.9)  # the 80/20 split, then fit's 10%
+    deepfm = (fit_n // CTR_BATCH + eval_forwards(int(FILES_CSV_ROWS * 0.8) - fit_n, CTR_BATCH)
+              + -(-(FILES_CSV_ROWS - int(FILES_CSV_ROWS * 0.8)) // CTR_REQUEST))
+    out["ctr deepfm"] = cli_run(["ctr", "--model", "deepfm", "--data", csv_path, "--epochs",
+                                 "1"], {"fm_pairwise_vector": deepfm},
+                                "cli ctr --model deepfm --data CSV")
+    out["ncf"] = cli_run(["ncf", "--ratings", str(assets / "ml100k" / "u.data"), "--epochs",
+                          "2"], {}, "cli ncf --ratings")
+    out["match"] = cli_run(["match", "--model", "dssm", "--ml100k", str(assets / "ml100k"),
+                            "--epochs", "2"], {"topk_scores": 1}, "cli match --ml100k")
+    ratings = str(assets / "ml_latest_ratings.csv")
+    _, train, _, test = build_sasrec_dataset(read_ratings(ratings), maxlen=50,
+                                             all_positions=True)
+    n = len(train["hist"])
+    steps = n // min(128, n)
+    fwd = 2 * steps + 2 * -(-len(test["hist"]) // 4096)
+    out["sasrec"] = cli_run(["sasrec", "--ratings", ratings, "--epochs", "1"],
+                            {"flash_attention_fwd": fwd, "flash_attention_bwd": 2 * steps},
+                            "cli sasrec --ratings")
+    lines = {"ctr deepfm": r"test AUC: ([0-9.]+)",
+             "ncf": r"epoch 2/2 loss=[0-9.]+ HR@10=([0-9.]+) NDCG@10=[0-9.]+",
+             "match": RECALL_LINE, "sasrec": r"test HR@10=([0-9.]+) NDCG@10=[0-9.]+"}
+    for task, res in out.items():
+        ok = re.fullmatch(lines[task], res["line"])
+        if not ok or not 0.0 <= float(ok.group(1)) <= 1.0:
+            raise AssertionError(f"files cli {task}: result line {res['line']!r}")
+        res.pop("result")
+    emit({"phase": "files cli", "tasks": out})
+    return out
+
+
+def phase_files(dev) -> dict:
+    """The file-fed training path: Criteo files written from the seed, the
+    parser checks, the stream fit through the CLI at full width, the two
+    touched-rows kinds, fused rowwise AdaGrad, checkpoints and the CLI's
+    file flags.  {run: result}, each with its launches."""
+    import tempfile
+
+    import torch
+
+    from recsys_tpu_torch.data.streaming import CriteoStream
+
+    rng = np.random.default_rng(15)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="files_") as tmp:
+        t0 = time.perf_counter()
+        paths = [f"{tmp}/day_{d}.txt" for d in range(2)]
+        for p in paths:
+            write_criteo(p, criteo_columns(rng, FILES_TRAIN_ROWS), "\t")
+        held = f"{tmp}/heldout.txt"
+        write_criteo(held, criteo_columns(rng, FILES_HELD_ROWS), "\t")
+        csv_path = f"{tmp}/criteo.csv"
+        write_criteo(csv_path, criteo_columns(rng, FILES_CSV_ROWS, csv_digits=True), ",",
+                     header=True)
+        emit({"phase": "files data", "seconds": time.perf_counter() - t0,
+              "bytes": sum(Path(p).stat().st_size for p in [*paths, held, csv_path])})
+        out["parse"] = phase_files_parse(paths)
+        out["stream"] = phase_files_stream(paths, held)
+        out["stream auc"] = {"launches": out["stream"]["auc_launches"]}
+        stream = CriteoStream(paths, batch_size=FILES_BATCH, shuffle=False)
+        batches = [b for b, _ in zip(stream, range(FILES_CHECKED_STEPS))]
+        for kind in ("rowwise_adagrad", "lazy_adam"):
+            out[kind] = sparse_kind_steps(kind, stream.schema, batches, dev)
+            torch.cuda.empty_cache()
+        out["fused_rowwise_adagrad"] = phase_files_fused_adagrad(stream.schema, batches, dev)
+        torch.cuda.empty_cache()
+        out["checkpoint"] = phase_files_checkpoint(paths, held, tmp, dev)
+        out.update({f"cli {k}": v for k, v in phase_files_cli(csv_path).items()})
+    return out
+
+
 def phase_ctr_check(rng, dev) -> dict:
     """ctr_check.check on every case; returns the worst abs error of the
     bi-interaction kernel at the path's shapes (4096 rows, F = 26 and 39,
@@ -3567,7 +4150,7 @@ def main() -> int:
     timing.update(phase_youtube_timing(rng, dev, yt_test["hist"], ni))
     mind = phase_mind(yt_train, yt_test, ni, dev)
     two_tower = phase_two_tower(ratings, meta, dev)
-    slice_s = {}  # the seconds of the last slice's phases
+    slice_s = {}  # the seconds of the last two slices' phases
     ncf, slice_s["ncf"] = timed(phase_ncf, ratings, dev)
     din, slice_s["din"] = timed(phase_din, ratings, meta, dev)
     del ratings, meta, yt_train, yt_test
@@ -3585,7 +4168,10 @@ def main() -> int:
     protocol_seq = phase_protocol_seq(dev)
     multitask, slice_s["multitask"] = timed(phase_multitask, dev)
     protocol_mt, slice_s["protocol mt"] = timed(phase_protocol_mt, dev)
+    files, slice_s["files"] = timed(phase_files, dev)
     emit({"phase": "slice seconds", **slice_s, "total": sum(slice_s.values())})
+    timing["embedding_adam"].update({f"stream_{k}": files["stream"]["embedding_adam"][k]
+                                     for k in ("ms", "plain_ms", "bound_ms")})
 
     csrc = "recsys_tpu_torch/kernels/csrc/"
     sources = {
@@ -3616,7 +4202,8 @@ def main() -> int:
             ctr_protocol, probes, mind, {"launches": mind["train_launches"]},
             *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
             *cli_runs.values(), *protocol_seq.values(), ncf, *din.values(),
-            *multitask.values(), *protocol_mt.values()]
+            *multitask.values(), *protocol_mt.values(),
+            *(r for r in files.values() if "launches" in r)]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({
@@ -3625,7 +4212,8 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("unfused_ms", "launch_floor_ms", "f32_core_bound_ms") if k in t},
+            **{k: t[k] for k in ("unfused_ms", "launch_floor_ms", "f32_core_bound_ms",
+                                 "stream_ms", "stream_plain_ms", "stream_bound_ms") if k in t},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card["nvidia_smi"], flush=True)

@@ -3,13 +3,14 @@ recsys_tpu.cli``): one entry point for the ported tasks, on the card unless
 ``--device`` names another.
 
     python -m recsys_tpu_torch.cli ctr --model fm|deepfm|widedeep|deepcrossing|dcn|dlrm|autoint
+                                       [--data criteo.csv [--sample-num N] | --data 'day_*' --stream]
     python -m recsys_tpu_torch.cli din       [--reviews r.json --meta m.json]
     python -m recsys_tpu_torch.cli multitask --model esmm|mmoe|ple [--census train test]
-    python -m recsys_tpu_torch.cli match     --model dssm|senet|fm
-    python -m recsys_tpu_torch.cli ncf
-    python -m recsys_tpu_torch.cli sasrec
-    python -m recsys_tpu_torch.cli youtube
-    python -m recsys_tpu_torch.cli mind
+    python -m recsys_tpu_torch.cli match     --model dssm|senet|fm [--ml100k DIR]
+    python -m recsys_tpu_torch.cli ncf       [--ratings u.data]
+    python -m recsys_tpu_torch.cli sasrec    [--ratings ratings.csv]
+    python -m recsys_tpu_torch.cli youtube   [--ratings u.data|ratings.csv]
+    python -m recsys_tpu_torch.cli mind      [--ratings u.data|ratings.csv]
         ... [--epochs 10] [--batch-size 512] [--lr 1e-3] [--device cpu]
 
 Each task trains on the JAX CLI's synthetic data unless given files
@@ -20,10 +21,19 @@ multitask) with its defaults: Adam at 1e-3; ``ctr``, ``din`` and
 NDCG@10 every second epoch on its epoch lines; then prints the JAX CLI's
 result line (``test AUC:``, ``<head> AUC:`` a head, ``test HR@10=...
 NDCG@10=...`` or ``recall@10: ... over N items``), and returns a dict of
-the fit's per-epoch ``loss`` and the printed metrics.  ``din`` reads an
+the fit's per-epoch ``loss`` and the printed metrics.
+
+The files: ``ctr --data`` reads a Criteo CSV with a header and
+label-encodes it (``--sample-num`` rows, when given); a glob, or
+``--stream``, streams Criteo files through the C++ parser instead
+(``data.streaming.CriteoStream``, categoricals hashed into 2^20 buckets a
+field), trains on the stream with no validation and prints ``final train
+loss:``.  ``match --ml100k`` reads an ml-100k directory, ``ncf --ratings``
+its ``u.data``, ``sasrec``, ``youtube`` and ``mind --ratings`` a ratings
+file (``u.data``, or an ml-latest CSV with a header).  ``din`` reads an
 Amazon reviews and meta dump, ``multitask --census`` the census-income
-train and test files.  The flags that read other files or shard over
-devices are refused with the ROADMAP item that ports them.
+train and test files.  The flags that shard over devices are refused with
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -37,9 +47,13 @@ from recsys_tpu_torch.core.features import FeatureSchema, VarLenSparseFeature
 from recsys_tpu_torch.data.amazon import (build_amazon_arrays, create_amazon_electronic_dataset,
                                           synthetic_reviews)
 from recsys_tpu_torch.data.census import create_census_dataset
+from recsys_tpu_torch.data.criteo import create_criteo_dataset
 from recsys_tpu_torch.data.movielens import (build_ml100k_arrays, build_ncf_dataset,
                                              build_sasrec_dataset, build_seq_retrieval_dataset,
-                                             synthetic_ratings, synthetic_user_item_frames)
+                                             create_ml_100k_dataset, create_ncf_dataset,
+                                             read_ratings, synthetic_ratings,
+                                             synthetic_user_item_frames)
+from recsys_tpu_torch.data.streaming import CriteoStream
 from recsys_tpu_torch.data.synthetic import synthetic_ctr, synthetic_multitask
 from recsys_tpu_torch.kernels import default_device
 from recsys_tpu_torch.models.ctr.din import DIN
@@ -56,20 +70,24 @@ from recsys_tpu_torch.train.loop import Trainer
 from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
 from recsys_tpu_torch.train.retrieval import BruteForceIndex, topk_scores
 
-# what the port refuses, and the ROADMAP.md item that ports it
-NOT_PORTED_FLAGS = {"data": "Queue 1 item 9", "stream": "Queue 1 item 9",
-                    "ml100k": "Queue 1 item 9", "ratings": "Queue 1 item 9",
-                    "sample_num": "Queue 1 item 9"}  # sample_num samples --data's rows
 DEFAULT_CAPACITY_FACTOR = 2.0  # the JAX CLI's; read by the sharded engines only
-NOT_PORTED_EMBEDDING_OPTIMIZERS = {"lazy_adam": "Queue 1 item 9",
-                                   "rowwise_adagrad": "Queue 1 item 9"}
 
 
 def run_ctr(args):
-    schema, data = synthetic_ctr(num_examples=20000, embed_dim=args.embed_dim, seed=0)
-    cut = int(0.8 * len(data["label"]))
-    train = {k: v[:cut] for k, v in data.items()}
-    test = {k: v[cut:] for k, v in data.items()}
+    stream = None
+    if args.data and (args.stream or any(c in args.data for c in "*?[")):
+        # the files stream chunk by chunk: host memory holds one chunk
+        stream = CriteoStream(args.data, batch_size=args.batch_size, embed_dim=args.embed_dim)
+        schema, train, test = stream.schema, stream, None
+    elif args.data:
+        schema, train, test = create_criteo_dataset(
+            args.data, embed_dim=args.embed_dim, read_part=args.sample_num > 0,
+            sample_num=args.sample_num)
+    else:
+        schema, data = synthetic_ctr(num_examples=20000, embed_dim=args.embed_dim, seed=0)
+        cut = int(0.8 * len(data["label"]))
+        train = {k: v[:cut] for k, v in data.items()}
+        test = {k: v[cut:] for k, v in data.items()}
     kw = {}
     if args.embedding_optimizer:
         kw["sparse_embed_grads"] = True
@@ -79,6 +97,10 @@ def run_ctr(args):
         kw["compute_dtype"] = torch.bfloat16
     tr = Trainer(CTR_MODELS[args.model](schema, **kw), learning_rate=args.lr,
                  embedding_optimizer=args.embedding_optimizer or None, device=args.device)
+    if stream is not None:
+        hist = tr.fit(train, epochs=args.epochs)
+        print(f"final train loss: {hist['loss'][-1]:.5f}")
+        return {"loss": hist["loss"]}
     hist = tr.fit(train, batch_size=args.batch_size, epochs=args.epochs, validation_split=0.1,
                   early_stopping_patience=1)
     auc = tr.evaluate_auc(test)
@@ -87,10 +109,15 @@ def run_ctr(args):
 
 
 def run_match(args):
-    nu, ni = 300, 150
-    users, items = synthetic_user_item_frames(nu, ni, seed=0)
-    user_schema, item_schema, train, test = build_ml100k_arrays(
-        synthetic_ratings(num_users=nu, num_items=ni), users, items, embed_dim=args.embed_dim)
+    if args.ml100k:
+        user_schema, item_schema, train, test = create_ml_100k_dataset(
+            args.ml100k, embed_dim=args.embed_dim)
+    else:
+        nu, ni = 300, 150
+        users, items = synthetic_user_item_frames(nu, ni, seed=0)
+        user_schema, item_schema, train, test = build_ml100k_arrays(
+            synthetic_ratings(num_users=nu, num_items=ni), users, items,
+            embed_dim=args.embed_dim)
     use_softmax = args.retrieval_loss == "softmax" and args.model != "fm"
     if args.model == "fm":
         model = FMMatch(user_schema, item_schema)
@@ -188,18 +215,29 @@ def run_multitask(args):
 
 
 def run_ncf(args):
-    """NCF on ``synthetic_ratings(300, 150)``: pairwise BCE, HR@10 and
-    NDCG@10 of the test rows every second epoch (on the epoch lines)."""
-    nu, ni, train, _, test = build_ncf_dataset(synthetic_ratings(num_users=300, num_items=150))
+    """NCF on an ml-100k ``u.data`` (``--ratings``) or on
+    ``synthetic_ratings(300, 150)``: pairwise BCE, HR@10 and NDCG@10 of the
+    test rows every second epoch (on the epoch lines)."""
+    if args.ratings:
+        nu, ni, train, _, test = create_ncf_dataset(args.ratings)
+    else:
+        nu, ni, train, _, test = build_ncf_dataset(synthetic_ratings(num_users=300,
+                                                                     num_items=150))
     tr = Trainer(NCF(nu, ni), loss_fn=ncf_loss, learning_rate=args.lr, device=args.device)
     hist = tr.fit(train, batch_size=args.batch_size or 128, epochs=args.epochs,
                   eval_fn=ranked_eval(test), eval_every=2)
     return {"loss": hist["loss"], **{k: hist[k] for k in ("HR@10", "NDCG@10") if k in hist}}
 
 
+def _ratings(args) -> dict:
+    """``--ratings``' file, or ``synthetic_ratings(300, 150)``."""
+    if args.ratings:
+        return read_ratings(args.ratings)
+    return synthetic_ratings(num_users=300, num_items=150)
+
+
 def run_sasrec(args):
-    ni, train, _, test = build_sasrec_dataset(synthetic_ratings(num_users=300, num_items=150),
-                                              maxlen=args.maxlen,
+    ni, train, _, test = build_sasrec_dataset(_ratings(args), maxlen=args.maxlen,
                                               all_positions=not args.sasrec_prefix)
     model = SASRec(num_items=ni, embed_dim=64, max_len=args.maxlen)
 
@@ -218,8 +256,7 @@ def run_sasrec(args):
 def run_seq_retrieval(args):
     """YoutubeDNN or MIND: the in-batch sampled softmax, then recall@10 over
     the whole catalog."""
-    ni, train, test = build_seq_retrieval_dataset(
-        synthetic_ratings(num_users=300, num_items=150), maxlen=args.maxlen)
+    ni, train, test = build_seq_retrieval_dataset(_ratings(args), maxlen=args.maxlen)
     if args.model == "mind":
         model = MIND(num_items=ni, embed_dim=args.embed_dim * 4, k_max=4)
     else:
@@ -246,18 +283,10 @@ def run_seq_retrieval(args):
 
 
 def _refuse(args) -> None:
-    """SystemExit naming the ROADMAP item for a flag or option the port
-    does not have yet, or the models ``multitask`` takes."""
+    """SystemExit for the models ``multitask`` does not take, and naming the
+    ROADMAP item of the multi-device flags the port does not have yet."""
     if args.task == "multitask" and args.model not in ("esmm", "mmoe", "ple"):
         raise SystemExit(f"multitask takes --model esmm, mmoe or ple, not {args.model!r}")
-    for flag, item in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP.md {item})")
-    if args.embedding_optimizer in NOT_PORTED_EMBEDDING_OPTIMIZERS:
-        raise SystemExit(f"--embedding-optimizer {args.embedding_optimizer} is not ported yet "
-                         f"(ROADMAP.md "
-                         f"{NOT_PORTED_EMBEDDING_OPTIMIZERS[args.embedding_optimizer]})")
     if args.embedding_engine != "gather" or args.mesh_model > 1 or \
             args.capacity_factor != DEFAULT_CAPACITY_FACTOR:
         raise SystemExit("the sharded embedding engines, --mesh-model and --capacity-factor "
@@ -269,8 +298,10 @@ def main(argv=None):
     p.add_argument("task", choices=["ctr", "din", "multitask", "match", "ncf", "sasrec",
                                     "youtube", "mind"])
     p.add_argument("--model", default="fm")
-    p.add_argument("--data", default=None, help="criteo csv path (not ported yet)")
-    p.add_argument("--stream", action="store_true", help="stream --data (not ported yet)")
+    p.add_argument("--data", default=None,
+                   help="criteo csv with a header, or a glob of criteo files to stream")
+    p.add_argument("--stream", action="store_true",
+                   help="stream --data through the C++ parser (hashed categoricals)")
     p.add_argument("--reviews", default=None)
     p.add_argument("--meta", default=None)
     p.add_argument("--census", nargs=2, default=None)
@@ -282,11 +313,12 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--maxlen", type=int, default=50)
     p.add_argument("--sample-num", type=int, default=0,
-                   help="rows sampled from --data (not ported yet)")
+                   help="read only the first N rows of --data")
     p.add_argument("--embedding-optimizer", default="",
                    choices=["", "lazy_adam", "rowwise_adagrad", "fused_adam",
                             "fused_rowwise_adagrad"],
-                   help="table update of the ctr task: fused_* run the fused "
+                   help="table update of the ctr task: lazy_adam and rowwise_adagrad "
+                        "update the touched rows only; fused_* run the fused "
                         "embedding-update kernels (exact dense semantics)")
     p.add_argument("--embedding-engine", default="gather",
                    choices=["gather", "psum", "dedup", "a2a", "a2a_pipelined"])

@@ -5,20 +5,20 @@ and embedded, the dense ones min-max scaled, and the test file split 1:1
 into val and test.
 
 ``read_columns`` reads a headerless CSV file into columns typed as
-``pandas.read_csv`` types them: int64 where every field is an integer,
-float64 where every field is a number, else the fields' text as they
-stand.  A column's codes come from each value turned back into text and
+``pandas.read_csv`` types them (``table.typed_column``): int64 where every
+field is an integer, float64 where every field is a number, else the
+fields' text as they stand; a census column has no missing field.  A column's codes come from each value turned back into text and
 stripped, as the JAX loader's ``astype(str).str.strip()`` does, so an
 integer column gives "7" and a float column "7.0" there as here.
 """
 from __future__ import annotations
 
 import csv
-import re
 
 import numpy as np
 
 from recsys_tpu_torch.core.features import DenseFeature, FeatureSchema, SparseFeature
+from recsys_tpu_torch.data.table import typed_column
 
 COLUMNS = [
     "age", "class_worker", "det_ind_code", "det_occ_code", "education",
@@ -42,28 +42,6 @@ LABEL_MARITAL = "marital_stat"
 SPARSE_COLS = [c for c in COLUMNS
                if c not in DENSE_COLS + DROP_COLS + [LABEL_INCOME, LABEL_MARITAL]]
 
-# the fields pandas.read_csv reads as missing by default
-NA_FIELDS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-                       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-                       "nan", "null"})
-INT_FIELD = re.compile(r"\s*[+-]?[0-9]+\s*")
-FLOAT_FIELD = re.compile(r"\s*[+-]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?\s*")
-
-
-def _typed(fields: list, name: str) -> np.ndarray:
-    """One column's fields -> int64, float64 or the fields as objects, the
-    type ``pandas.read_csv`` infers; a field pandas reads as missing
-    raises, since a census column has none."""
-    missing = [r for r, f in enumerate(fields) if f in NA_FIELDS]
-    if missing:
-        raise ValueError(f"column {name!r}: a missing field in data row {missing[0] + 1}")
-    if all(INT_FIELD.fullmatch(f) for f in fields):
-        return np.asarray([int(f) for f in fields], np.int64)
-    if all(FLOAT_FIELD.fullmatch(f) for f in fields):
-        return np.asarray([float(f) for f in fields], np.float64)
-    return np.asarray(fields, object)
-
-
 def read_columns(path: str, names: list = COLUMNS) -> dict:
     """A headerless CSV file -> {name: column}, typed as ``pandas.read_csv(
     path, names=names)`` types them; blank lines are skipped."""
@@ -73,7 +51,7 @@ def read_columns(path: str, names: list = COLUMNS) -> dict:
     if bad:
         raise ValueError(f"{path}: row {bad[0] + 1} has {len(rows[bad[0]])} fields, "
                          f"expected {len(names)}")
-    return {name: _typed([r[j] for r in rows], name) for j, name in enumerate(names)}
+    return {name: typed_column([r[j] for r in rows], name) for j, name in enumerate(names)}
 
 
 def as_text(col: np.ndarray) -> np.ndarray:

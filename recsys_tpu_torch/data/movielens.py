@@ -1,21 +1,64 @@
 """MovieLens-style data for NCF, SASRec, YoutubeDNN, MIND and the two-tower
 models (the port's copy of ``recsys_tpu/data/movielens.py::synthetic_ratings``,
 ``build_ml100k_arrays``, ``build_ncf_dataset``, ``build_sasrec_dataset`` and
-``build_seq_retrieval_dataset``, and of the user and item frames ``cli
-match`` makes), in numpy only: ratings, users and items are dicts of
-columns instead of pandas DataFrames.  The functions that draw random
+``build_seq_retrieval_dataset``, of the user and item frames ``cli
+match`` makes, and of the file readers ``create_ml_100k_dataset``,
+``create_ncf_dataset`` and ``create_sasrec_dataset``), in numpy only:
+ratings, users and items are dicts of columns instead of pandas
+DataFrames, read from the files as ``pandas.read_csv`` types them
+(``table.read_table``).  The functions that draw random
 numbers draw from their generator in the JAX package's order, so the same
 seed gives the same arrays bit for bit; the retrieval dataset draws none
 and is bit-equal outright.  The JAX package's native C++ version of the
-SASRec dataset is not ported yet.
+SASRec dataset is not ported: ``create_sasrec_dataset`` takes the numpy
+builder, where the JAX one takes the native builder when it can build it.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature
+from recsys_tpu_torch.data.table import read_table
 
 AGE_BINS = (0, 15, 25, 35, 45, 60, 100)
+ML100K_RATINGS = ["user_id", "item_id", "rating", "timestamp"]
+ML100K_USERS = ["user_id", "age", "gender", "occupation", "zip"]
+
+
+def read_ratings(path: str) -> dict:
+    """A ratings file as the JAX CLI reads one: an ml-100k ``u.data``
+    (``.data``: tab-separated user, item, rating, timestamp, no header),
+    else a CSV file with a header whose ``userId`` and ``movieId`` become
+    ``user_id`` and ``item_id`` (the ml-latest format)."""
+    if str(path).endswith(".data"):
+        return read_table(path, sep="\t", names=ML100K_RATINGS)
+    cols = read_table(path)
+    return {{"userId": "user_id", "movieId": "item_id"}.get(k, k): v for k, v in cols.items()}
+
+
+def create_ml_100k_dataset(data_dir: str, embed_dim: int = 16, test_size: float = 0.2,
+                           seed: int = 2020):
+    """``build_ml100k_arrays`` of an ml-100k directory: ``u.data``
+    (tab-separated ratings), ``u.user`` (pipe-separated users) and
+    ``u.item`` (pipe-separated, latin-1; its item id and release date)."""
+    ratings = read_table(f"{data_dir}/u.data", sep="\t", names=ML100K_RATINGS)
+    users = read_table(f"{data_dir}/u.user", sep="|", names=ML100K_USERS)
+    items = read_table(f"{data_dir}/u.item", sep="|", names=["item_id", "release_date"],
+                       usecols=[0, 2], encoding="latin-1")
+    return build_ml100k_arrays(ratings, users, items, embed_dim, test_size, seed)
+
+
+def create_ncf_dataset(path: str, **kw):
+    """``build_ncf_dataset`` of an ml-100k ``u.data`` file."""
+    return build_ncf_dataset(read_table(path, sep="\t", names=ML100K_RATINGS), **kw)
+
+
+def create_sasrec_dataset(ratings_csv: str, maxlen: int = 50, test_neg_num: int = 20,
+                          min_item_count: int = 5, seed: int = 2020):
+    """``build_sasrec_dataset`` of an ml-latest ``ratings.csv`` (header
+    userId, movieId, rating, timestamp)."""
+    return build_sasrec_dataset(read_ratings(ratings_csv), maxlen, test_neg_num,
+                                min_item_count, seed)
 
 
 def synthetic_ratings(num_users: int = 200, num_items: int = 100,

@@ -663,7 +663,8 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--teacher", default="fm", choices=["fm", "mlp"])
     p.add_argument("--embedding-optimizer", default=None,
-                   choices=["fused_adam", "fused_rowwise_adagrad"])
+                   choices=["lazy_adam", "rowwise_adagrad", "fused_adam",
+                            "fused_rowwise_adagrad"])
     p.add_argument("--drift-scale", type=float, default=6.0,
                    help="sasrec generator's sequence drift; 2.0 does not saturate HR@10")
     p.add_argument("--device", default=None, help="default: the card")

@@ -1,7 +1,9 @@
 """Trainer: training (``fit``, ``train_step``, ``evaluate_loss``) and serving
 (``predict``, ``evaluate_auc``).
 
-Batches are cut on the host at a fixed size.  Training shuffles every
+Batches are cut on the host at a fixed size, or come from a stream (a
+re-iterable object such as ``data.streaming.CriteoStream``, or a
+zero-argument callable returning an iterator).  Training shuffles every
 epoch and drops the remainder; evaluation pads the last batch by repeating
 its last row and drops the padding from its outputs.  Batch assembly, id
 validation and the fused embedding optimizers' host prep run on the
@@ -10,6 +12,8 @@ prefetch thread, ahead of the device.  Serving runs under
 """
 from __future__ import annotations
 
+import json
+import time
 from typing import Callable
 
 import numpy as np
@@ -22,10 +26,11 @@ from recsys_tpu_torch.ops.embedding import StackedEmbedding
 from recsys_tpu_torch.train import losses as losses_lib
 from recsys_tpu_torch.train import metrics as metrics_lib
 from recsys_tpu_torch.train import sparse_embed, streaming_embed
+from recsys_tpu_torch.train.checkpoint import BestCheckpointer
 
-# embedding optimizers of the JAX package that the port does not have yet
-NOT_PORTED = ("lazy_adam", "rowwise_adagrad")
 FUSED = {"fused_adam": "adam", "fused_rowwise_adagrad": "rowwise_adagrad"}
+EMBEDDING_OPTIMIZERS = (*sparse_embed.KINDS, *FUSED)
+AUC_BINS = 8192
 
 
 def _num_examples(data: dict) -> int:
@@ -50,8 +55,10 @@ class Trainer:
     path (the model must be built with ``sparse_embed_grads=True``):
 
     * ``None`` -- the tables train through autograd and dense Adam;
+    * ``'lazy_adam'``, ``'rowwise_adagrad'`` -- touched-rows updates in
+      torch ops (``sparse_embed.apply_updates``);
     * ``'fused_adam'`` -- exact dense Adam through the fused
-      embedding-update kernel, one launch per table and step;
+      embedding-update kernel, one launch a step over every table;
     * ``'fused_rowwise_adagrad'`` -- rowwise AdaGrad through the same
       kernel's sibling.
 
@@ -65,12 +72,9 @@ class Trainer:
                  embedding_optimizer: str | None = None,
                  embedding_lr: float | None = None,
                  embedding_fused_bf16: bool = True, device=None):
-        if embedding_optimizer in NOT_PORTED:
-            raise ValueError(f"embedding_optimizer={embedding_optimizer!r} is not "
-                             "ported yet (ROADMAP.md Queue 1 item 5)")
-        if embedding_optimizer is not None and embedding_optimizer not in FUSED:
+        if embedding_optimizer is not None and embedding_optimizer not in EMBEDDING_OPTIMIZERS:
             raise ValueError(f"embedding_optimizer={embedding_optimizer!r} not in "
-                             f"{(None, *FUSED)}")
+                             f"{(None, *EMBEDDING_OPTIMIZERS)}")
         self.device = default_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -111,17 +115,20 @@ class Trainer:
             self.plan = sparse_embed.build_plan(self.embedding)
             for name in self.plan.table_names:
                 getattr(self.embedding, name).requires_grad_(False)
-            kind = FUSED[embedding_optimizer]
+            kind = FUSED.get(embedding_optimizer, embedding_optimizer)
             self.emb_state = sparse_embed.init_state(
                 self.tables(), "lazy_adam" if kind == "adam" else kind)
-            self._prep = streaming_embed.make_host_prep(self.plan)
+            if embedding_optimizer in FUSED:
+                self._prep = streaming_embed.make_host_prep(self.plan)
         params = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer = (
-            torch.optim.AdamW(params, lr=learning_rate, weight_decay=weight_decay)
-            if weight_decay > 0.0 else torch.optim.Adam(params, lr=learning_rate))
+        if weight_decay > 0.0:
+            self.optimizer = torch.optim.AdamW(params, lr=learning_rate,
+                                               weight_decay=weight_decay)
+        else:
+            self.optimizer = torch.optim.Adam(params, lr=learning_rate)
 
     def tables(self) -> dict:
-        """{table name: tensor} of the tables the fused optimizer updates."""
+        """{table name: tensor} of the tables the embedding optimizer updates."""
         return {name: getattr(self.embedding, name).data for name in self.plan.table_names}
 
     # -- data plumbing ----------------------------------------------------
@@ -140,20 +147,33 @@ class Trainer:
             if pad > 0:
                 batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                          for k, v in batch.items()}
-            for key, vocab in self._vocabs.items():
-                # an id outside its table would fault the device gather
-                ids = batch.get(key)
-                if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
-                    raise ValueError(f"sparse ids outside their vocabularies "
-                                     f"in rows {s}..{s + valid}")
-            for key, vocab in self._id_vocabs.items():
-                ids = batch.get(key)
-                if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
-                    raise ValueError(f"{key} ids outside [0, {vocab}) in rows "
-                                     f"{s}..{s + valid}")
-            if prep is not None:
-                batch.update(prep(batch["sparse"]))
-            yield batch, valid
+            yield self._checked(batch, s, valid, prep), valid
+
+    def _checked(self, batch: dict, start: int, valid: int, prep: Callable | None) -> dict:
+        """``batch`` after its id checks, with ``prep``'s arrays added."""
+        for key, vocab in self._vocabs.items():
+            # an id outside its table would fault the device gather
+            ids = batch.get(key)
+            if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
+                raise ValueError(f"sparse ids outside their vocabularies "
+                                 f"in rows {start}..{start + valid}")
+        for key, vocab in self._id_vocabs.items():
+            ids = batch.get(key)
+            if ids is not None and ((ids < 0).any() or (ids >= vocab).any()):
+                raise ValueError(f"{key} ids outside [0, {vocab}) in rows "
+                                 f"{start}..{start + valid}")
+        if prep is not None:
+            batch.update(prep(batch["sparse"]))
+        return batch
+
+    def _streamed(self, stream, prep: Callable | None = None):
+        """One pass over ``stream`` (re-iterable, or a zero-argument callable
+        returning an iterator): (checked batch, its rows)."""
+        start = 0
+        for b in (stream() if callable(stream) else iter(stream)):
+            rows = _num_examples(b)
+            yield self._checked(dict(b), start, rows, prep), rows
+            start += rows
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -174,24 +194,38 @@ class Trainer:
         loss.backward()
         self.optimizer.step()
         if self.embedding is not None:
-            streaming_embed.apply_updates_fused(
-                self.tables(), self.emb_state, self.plan, db, self.embedding.tap.grad,
-                lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay,
-                kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16)
+            if self.embedding_optimizer in FUSED:
+                streaming_embed.apply_updates_fused(
+                    self.tables(), self.emb_state, self.plan, db, self.embedding.tap.grad,
+                    lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay,
+                    kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16)
+            else:
+                sparse_embed.apply_updates(
+                    self.tables(), self.emb_state, self.plan, db["sparse"],
+                    self.embedding.tap.grad, kind=self.embedding_optimizer,
+                    lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay)
             self.embedding.tap = None
         return loss.detach()
 
-    def fit(self, train_data: dict, batch_size: int = 512, epochs: int = 10,
+    def fit(self, train_data, batch_size: int = 512, epochs: int = 10,
             val_data: dict | None = None, validation_split: float = 0.0,
-            early_stopping_patience: int | None = None, verbose: bool = True,
+            early_stopping_patience: int | None = None,
+            checkpoint_path: str | None = None, verbose: bool = True,
+            log_jsonl: str | None = None,
             eval_fn: Callable | None = None, eval_every: int = 1) -> dict:
-        """Train on a dict of aligned numpy arrays (with the label key).
+        """Train on a dict of aligned numpy arrays (with the label key), or
+        on a stream of batch dicts (a re-iterable object, each ``iter()`` a
+        fresh pass, or a zero-argument callable returning an iterator).
 
-        Each epoch reshuffles (a numpy generator seeded by ``seed``) and
-        drops the remainder; a batch larger than the data is clamped to it.
-        ``validation_split`` holds out the dataset's tail when ``val_data``
-        is not given.  The loss adds up on the device and is read once per
-        epoch.  Returns ``{'loss': [...], 'val_loss': [...]}``.
+        Arrays: each epoch reshuffles (a numpy generator seeded by
+        ``seed``) and drops the remainder; a batch larger than the data is
+        clamped to it; ``validation_split`` holds out the dataset's tail
+        when ``val_data`` is not given.  A stream: each epoch is one pass,
+        its batches as they come (their size is the stream's), with the id
+        checks and the fused host prep on the prefetch thread; it takes no
+        ``validation_split``, and ``val_data`` must be an array dict.  The
+        loss adds up on the device and is read once per epoch.  Returns
+        ``{'loss': [...], 'val_loss': [...]}``.
 
         With validation data, an epoch whose validation loss falls below the
         best by more than 1e-6 keeps a copy of the model's parameters and
@@ -201,30 +235,50 @@ class Trainer:
         stopping), as in the JAX package.  The optimizer state and
         ``self.step`` go on from the last step.
 
+        ``checkpoint_path`` keeps the best checkpoint there
+        (``checkpoint.BestCheckpointer`` on the validation loss, or on the
+        training loss without validation data).  ``log_jsonl`` appends one
+        JSON record an epoch: ``epoch``, ``step``, ``loss``,
+        ``epoch_seconds`` and, with validation data, ``val_loss``.
+
         ``eval_fn(trainer)``, if given, runs after validation on every
         ``eval_every``-th epoch and returns {metric: float}; each value is
         appended to ``history[metric]`` and shown on the epoch's line."""
-        if validation_split > 0.0 and val_data is None:
-            cut = int(_num_examples(train_data) * (1.0 - validation_split))
-            val_data = {k: v[cut:] for k, v in train_data.items()}
-            train_data = {k: v[:cut] for k, v in train_data.items()}
-        n = _num_examples(train_data)
-        if n == 0:
-            raise ValueError("empty training dataset")
-        batch_size = min(batch_size, n)
+        streaming = not isinstance(train_data, dict)
+        if streaming:
+            if validation_split > 0.0:
+                raise ValueError("validation_split needs a resident array dict; pass a "
+                                 "val_data dict alongside the training stream instead")
+            if val_data is not None and not isinstance(val_data, dict):
+                raise ValueError("val_data must be a dict of arrays beside a training stream")
+        else:
+            if validation_split > 0.0 and val_data is None:
+                cut = int(_num_examples(train_data) * (1.0 - validation_split))
+                val_data = {k: v[cut:] for k, v in train_data.items()}
+                train_data = {k: v[:cut] for k, v in train_data.items()}
+            n = _num_examples(train_data)
+            if n == 0:
+                raise ValueError("empty training dataset")
+            batch_size = min(batch_size, n)
+        checkpointer = BestCheckpointer(checkpoint_path) if checkpoint_path else None
         history = {"loss": [], "val_loss": []}
         best_val, best_state, bad_epochs = np.inf, None, 0
         for epoch in range(epochs):
-            order = np.arange(n)
-            self._shuffle_rng.shuffle(order)
+            t0 = time.time()
+            if streaming:
+                batches = self._streamed(train_data, self._prep)
+            else:
+                order = np.arange(n)
+                self._shuffle_rng.shuffle(order)
+                batches = self._batches(train_data, batch_size, order, True, self._prep)
             total, count = None, 0
-            for batch, _ in prefetch(self._batches(train_data, batch_size, order, True,
-                                                   self._prep)):
+            for batch, _ in prefetch(batches):
                 loss = self.train_step(batch)
                 total = loss if total is None else total + loss
                 count += 1
-            history["loss"].append(float(total) / count)
-            msg = f"epoch {epoch + 1}/{epochs} loss={history['loss'][-1]:.5f}"
+            train_loss = float(total) / count if count else 0.0
+            history["loss"].append(train_loss)
+            msg = f"epoch {epoch + 1}/{epochs} loss={train_loss:.5f}"
             if val_data is not None:
                 val_loss = self.evaluate_loss(val_data, batch_size)
                 history["val_loss"].append(val_loss)
@@ -237,12 +291,21 @@ class Trainer:
                                   for k, v in self.model.state_dict().items()}
                 else:
                     bad_epochs += 1
+            if checkpointer is not None:
+                checkpointer.update(val_loss if val_data is not None else train_loss, self)
             if eval_fn is not None and (epoch + 1) % eval_every == 0:
                 for k, v in eval_fn(self).items():
                     history.setdefault(k, []).append(v)
                     msg += f" {k}={v:.4f}"
             if verbose:
                 print(msg)
+            if log_jsonl:
+                rec = {"epoch": epoch + 1, "step": self.step, "loss": train_loss,
+                       "epoch_seconds": round(time.time() - t0, 3)}
+                if val_data is not None:
+                    rec["val_loss"] = history["val_loss"][-1]
+                with open(log_jsonl, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
             if early_stopping_patience is not None and bad_epochs >= early_stopping_patience:
                 break
         if best_state is not None:
@@ -297,10 +360,22 @@ class Trainer:
             return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
         return np.concatenate(outs, axis=0)
 
-    def evaluate_auc(self, data: dict, batch_size: int = 4096,
-                     label_key: str = "label", from_logits: bool = True) -> float:
+    def evaluate_auc(self, data, batch_size: int = 4096, label_key: str = "label",
+                     from_logits: bool = True) -> float:
         """Binned AUC (8192 bins) of the predictions against
-        ``data[label_key]``."""
-        preds = self.predict(data, batch_size)
-        scores = torch.sigmoid(torch.from_numpy(preds)).numpy() if from_logits else preds
-        return metrics_lib.auc(scores, data[label_key])
+        ``data[label_key]``, over a dict of arrays or a stream of batch
+        dicts (as ``fit`` takes one).  Each batch's scores add to two
+        histograms on the device (``metrics.AucAccumulator``), the padded
+        rows weighted 0, so no per-example score reaches the host."""
+        batches = (self._batches(data, batch_size) if isinstance(data, dict)
+                   else self._streamed(data))
+        acc = metrics_lib.AucAccumulator(AUC_BINS, device=self.device)
+        self.model.eval()
+        with torch.inference_mode():
+            for batch, valid in prefetch(batches):
+                db = self._to_device(batch)
+                out = self.model(db).float()
+                labels = db[label_key]
+                weights = (torch.arange(labels.shape[0], device=self.device) < valid).float()
+                acc.update(torch.sigmoid(out) if from_logits else out, labels, weights)
+        return acc.result()

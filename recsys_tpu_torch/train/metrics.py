@@ -1,5 +1,6 @@
 """Evaluation metrics: binned AUC, exact AUC, the ranked-candidate
-HR/NDCG@K and retrieval recall@K, in numpy.
+HR/NDCG@K and retrieval recall@K, in numpy, and the binned AUC's
+histograms on the device (``auc_histogram_torch``, ``AucAccumulator``).
 
 The binned AUC is the JAX package's estimator: per-class histograms of
 sigmoid-space scores over fixed bins, then the trapezoidal area over the
@@ -8,6 +9,7 @@ cumulative TPR/FPR (the estimator Keras' bucketed AUC uses).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def auc_histogram(scores, labels, num_bins: int = 2048, weights=None):
@@ -20,6 +22,41 @@ def auc_histogram(scores, labels, num_bins: int = 2048, weights=None):
     pos = np.bincount(bins, weights=labels * w, minlength=num_bins)
     neg = np.bincount(bins, weights=(1.0 - labels) * w, minlength=num_bins)
     return pos, neg
+
+
+def auc_histogram_torch(scores: torch.Tensor, labels: torch.Tensor, num_bins: int = 2048,
+                        weights: torch.Tensor | None = None):
+    """``auc_histogram`` on the scores' device: bins in f32 as
+    ``(clip(s, 0, 1) · num_bins)`` cast to int32, capped at num_bins - 1;
+    returns the f32 (pos, neg) histograms, each row weighted by
+    ``weights`` (its validity)."""
+    s = scores.float().clamp(0.0, 1.0)
+    bins = torch.clamp_max((s * num_bins).to(torch.int32), num_bins - 1).long()
+    y = labels.float()
+    w = torch.ones_like(y) if weights is None else weights.float()
+    pos = torch.zeros(num_bins, dtype=torch.float32, device=s.device).index_add_(0, bins, y * w)
+    neg = torch.zeros(num_bins, dtype=torch.float32, device=s.device).index_add_(
+        0, bins, (1.0 - y) * w)
+    return pos, neg
+
+
+class AucAccumulator:
+    """Streaming binned AUC: two f32 histograms on ``device`` that each
+    batch's scores in [0, 1] add to; nothing per example reaches the host."""
+
+    def __init__(self, num_bins: int = 2048, device=None):
+        self.num_bins = num_bins
+        self.pos = torch.zeros(num_bins, dtype=torch.float32, device=device)
+        self.neg = torch.zeros(num_bins, dtype=torch.float32, device=device)
+
+    def update(self, scores: torch.Tensor, labels: torch.Tensor, weights=None) -> None:
+        p, n = auc_histogram_torch(scores, labels, self.num_bins, weights)
+        self.pos += p
+        self.neg += n
+
+    def result(self) -> float:
+        return auc_from_histogram(self.pos.cpu().double().numpy(),
+                                  self.neg.cpu().double().numpy())
 
 
 def auc_from_histogram(pos, neg) -> float:

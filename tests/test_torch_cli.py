@@ -2,8 +2,10 @@
 task at a few epochs prints the JAX CLI's result line with its metric in
 range (as tests/test_cli.py reads the JAX one), din and multitask also on
 review and census files the test writes; the flags the port does not have
-yet exit naming their ROADMAP item; and the CLI, the protocol runner and
+yet exit naming their ROADMAP item; the file flags run on the
+``tests/assets`` files; and the CLI, the protocol runner and
 the models import neither JAX, pandas nor the JAX package."""
+import functools
 import json
 import os
 import re
@@ -133,20 +135,61 @@ def test_multitask_refuses_models_it_does_not_have():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (("ctr", "--data", "criteo.csv"), "Queue 1 item 9"),
-    (("ctr", "--data", "criteo.csv", "--stream"), "Queue 1 item 9"),
-    (("match", "--ml100k", "ml-100k"), "Queue 1 item 9"),
-    (("sasrec", "--ratings", "ratings.csv"), "Queue 1 item 9"),
-    (("ctr", "--embedding-optimizer", "lazy_adam"), "Queue 1 item 9"),
-    (("ctr", "--embedding-optimizer", "rowwise_adagrad"), "Queue 1 item 9"),
     (("ctr", "--embedding-engine", "a2a"), "Queue 1 item 10"),
     (("ctr", "--mesh-model", "2"), "Queue 1 item 10"),
-    (("ctr", "--sample-num", "1000"), "Queue 1 item 9"),
     (("ctr", "--capacity-factor", "1.5"), "Queue 1 item 10"),
 ])
 def test_refused_tasks_and_flags_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=re.escape(f"ROADMAP.md {item}")):
         cli.main([*argv, "--device", "cpu"])
+
+
+ASSETS = REPO / "tests" / "assets"
+
+
+@pytest.mark.parametrize("argv, pattern", [
+    (("ctr", "--model", "deepfm", "--data", str(ASSETS / "criteo_sample.csv")),
+     r"test AUC: ([0-9.]+)\n"),
+    (("ctr", "--model", "fm", "--data", str(ASSETS / "criteo_sample.csv"), "--sample-num",
+      "250"), r"test AUC: ([0-9.]+)\n"),
+    (("ctr", "--model", "dlrm", "--embedding-optimizer", "lazy_adam"),
+     r"test AUC: ([0-9.]+)\n"),
+    (("ctr", "--model", "dlrm", "--bf16", "--embedding-optimizer", "rowwise_adagrad"),
+     r"test AUC: ([0-9.]+)\n"),
+    (("match", "--model", "dssm", "--ml100k", str(ASSETS / "ml100k")),
+     r"recall@10: ([0-9.]+) over \d+ items"),
+    (("ncf", "--ratings", str(ASSETS / "ml100k" / "u.data")),
+     r"epoch 2/2 loss=[0-9.]+ HR@10=([0-9.]+) NDCG@10=[0-9.]+\n"),
+    (("sasrec", "--ratings", str(ASSETS / "ml_latest_ratings.csv"), "--maxlen", "20"),
+     r"test HR@10=([0-9.]+) NDCG@10=[0-9.]+\n"),
+    (("youtube", "--ratings", str(ASSETS / "ml100k" / "u.data"), "--maxlen", "20"),
+     r"recall@10: ([0-9.]+) over \d+ items"),
+], ids=["ctr-data", "ctr-sample-num", "ctr-lazy_adam", "ctr-rowwise_adagrad", "match-ml100k",
+        "ncf-ratings", "sasrec-ratings", "youtube-ratings"])
+def test_file_flags_and_sparse_optimizers_run(capsys, argv, pattern):
+    metric = _value(_run(capsys, *argv, "--epochs", "2"), pattern)
+    assert 0.0 <= metric <= 1.0
+
+
+def test_ctr_streams_a_glob_of_criteo_files(capsys, tmp_path, monkeypatch):
+    """``--data GLOB --stream``: the files stream through the C++ parser
+    (hashed into 2^10 buckets here to stay small), no validation, and the
+    final training loss is printed."""
+    rng = np.random.default_rng(0)
+    for day in range(2):
+        rows = ["\t".join([str(int(rng.random() < 0.3)),
+                           *(str(v) for v in rng.integers(0, 9, 13)),
+                           *(format(int(v), "x") for v in rng.integers(0, 99, 26))])
+                for _ in range(300)]
+        (tmp_path / f"day_{day}.txt").write_text("\n".join(rows) + "\n")
+    monkeypatch.setattr(cli, "CriteoStream", functools.partial(cli.CriteoStream,
+                                                               cat_buckets=1 << 10))
+    res = cli.main(["ctr", "--model", "dlrm", "--bf16", "--embedding-optimizer", "fused_adam",
+                    "--data", str(tmp_path / "day_*.txt"), "--stream", "--batch-size", "128",
+                    "--epochs", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"epoch 2/2 loss=[0-9.]+\nfinal train loss: [0-9.]+\n$", out), out
+    assert len(res["loss"]) == 2 and np.isfinite(res["loss"]).all()
 
 
 def test_bf16_is_refused_outside_dlrm():
@@ -162,7 +205,9 @@ def test_entry_points_import_neither_jax_nor_the_jax_package():
             "recsys_tpu_torch.data.amazon, recsys_tpu_torch.data.census, "
             "recsys_tpu_torch.models.match.ncf, recsys_tpu_torch.models.ctr.din, "
             "recsys_tpu_torch.models.ctr.esmm, recsys_tpu_torch.models.ctr.mmoe, "
-            "recsys_tpu_torch.models.ctr.ple; "
+            "recsys_tpu_torch.models.ctr.ple, recsys_tpu_torch.data.criteo, "
+            "recsys_tpu_torch.data.streaming, recsys_tpu_torch.data.native, "
+            "recsys_tpu_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu', 'pandas')]; print(bad); "
             "sys.exit(bool(bad))")

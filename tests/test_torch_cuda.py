@@ -1403,3 +1403,97 @@ def test_perrow_walk_library_refuses_bad_plans_and_reads_the_add_latency(cuda):
     torch.cuda.synchronize()
     assert out[0, 0].item() == 8192.0  # 8192 ones, exact in f32
     assert 1.0 <= cycles.item() / 8192 < 64.0
+
+
+# -- the file-fed training path: sparse kinds, device histogram, checkpoints ----
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("kind", ["lazy_adam", "rowwise_adagrad"])
+def test_sparse_update_on_card_matches_cpu(cuda, kind, wd):
+    """Three touched-rows steps of a 5000 x 16 table with duplicate ids (a
+    thousand occurrences of row 17) on the card against the CPU:
+    index_add_ sums duplicates in no fixed order on the card, so the
+    other rows hold within 1e-6 and row 17, a sum of 1000 f32 terms in
+    another order, within rtol 1e-4; the rows no batch touches, and
+    their state, bit-unchanged on the card."""
+    from recsys_tpu_torch.train import sparse_embed
+
+    rng = np.random.default_rng(40)
+    v, d = 5000, 16
+    init = {"table": rng.standard_normal((v, d)).astype(np.float32),
+            "m": np.zeros((v, d), np.float32), "v": np.zeros((v, d), np.float32),
+            "acc": np.zeros(v, np.float32)}
+    cpu = {k: torch.from_numpy(a.copy()) for k, a in init.items()}
+    card = {k: torch.from_numpy(a.copy()).to(cuda) for k, a in init.items()}
+    touched = set()
+    for step in range(1, 4):
+        rows = rng.integers(0, 3000, 4096)
+        rows[:1000] = 17
+        cot = rng.standard_normal((4096, d)).astype(np.float32)
+        touched |= set(rows.tolist())
+        for st, dev in ((cpu, "cpu"), (card, cuda)):
+            r, c = torch.from_numpy(rows).to(dev), torch.from_numpy(cot).to(dev)
+            if kind == "lazy_adam":
+                sparse_embed.lazy_adam_update(st["table"], st["m"], st["v"], r, c, lr=1e-2,
+                                              step=step, weight_decay=wd)
+            else:
+                sparse_embed.rowwise_adagrad_update(st["table"], st["acc"], r, c, lr=1e-2,
+                                                    weight_decay=wd)
+    torch.cuda.synchronize()
+    keys = ("table", "m", "v") if kind == "lazy_adam" else ("table", "acc")
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(v), sorted(touched)))
+    rest = torch.arange(v) != 17
+    for k in keys:
+        torch.testing.assert_close(card[k].cpu()[rest], cpu[k][rest], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(card[k].cpu()[17], cpu[k][17], rtol=1e-4, atol=1e-6)
+        assert torch.equal(card[k].cpu()[untouched], torch.from_numpy(init[k])[untouched])
+
+
+def test_device_histogram_on_card_matches_numpy(cuda):
+    from recsys_tpu_torch.train import metrics
+
+    rng = np.random.default_rng(41)
+    s = np.concatenate([rng.random(100_000), [0.0, 1.0, -1.0, 2.0]]).astype(np.float32)
+    y = (rng.random(len(s)) < 0.3).astype(np.float32)
+    w = (rng.random(len(s)) < 0.95).astype(np.float32)
+    pos, neg = metrics.auc_histogram_torch(*(torch.from_numpy(a).to(cuda) for a in (s, y)),
+                                           8192, torch.from_numpy(w).to(cuda))
+    want = metrics.auc_histogram(s, y, 8192, weights=w)
+    # f32 sums of 0/1 weights below 2^24 are exact in any order
+    np.testing.assert_array_equal(pos.cpu().numpy(), want[0])
+    np.testing.assert_array_equal(neg.cpu().numpy(), want[1])
+
+
+@pytest.mark.parametrize("opt", ["lazy_adam", "fused_adam"])
+def test_checkpoint_saved_and_restored_on_card(cuda, tmp_path, opt):
+    """A DLRM trained two steps on the card, saved, restored on the card
+    into a fresh Trainer: the same state, bit for bit, and the same next
+    step's loss."""
+    from recsys_tpu_torch.train import checkpoint
+
+    schema, data = synthetic_ctr(num_examples=3 * 512, num_dense=13, num_sparse=26,
+                                 vocab_size=1000, embed_dim=16, seed=42)
+    batches = [{k: v[i * 512:(i + 1) * 512] for k, v in data.items()} for i in range(3)]
+
+    def make():
+        torch.manual_seed(0)
+        return Trainer(DLRM(schema, sparse_embed_grads=True, device=cuda),
+                       embedding_optimizer=opt)
+
+    saved = make()
+    for b in batches[:2]:
+        saved.train_step(b)
+    path = str(tmp_path / "ckpt.pt")
+    checkpoint.save(path, saved)
+    restored = make()
+    restored.train_step(batches[2])  # other weights and state
+    checkpoint.restore(path, restored)
+    assert restored.step == saved.step == 2
+    for name, w in saved.model.state_dict().items():
+        assert restored.model.state_dict()[name].device.type == "cuda"
+        assert torch.equal(restored.model.state_dict()[name], w), name
+    for name, st in saved.emb_state.items():
+        for k, v in st.items():
+            assert torch.equal(restored.emb_state[name][k], v), f"{name}.{k}"
+    np.testing.assert_array_equal(restored.predict(batches[2]), saved.predict(batches[2]))
+    torch.testing.assert_close(restored.train_step(batches[2]), saved.train_step(batches[2]),
+                               rtol=1e-6, atol=1e-6)

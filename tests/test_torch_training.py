@@ -202,7 +202,7 @@ def test_tables_get_no_autograd_gradient_under_the_fused_optimizer():
 
 def test_trainer_refuses_what_is_not_ported_or_has_no_tap():
     _, _, tm, _ = build_pair()
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="sparse_embed_grads"):
         Trainer(tm, embedding_optimizer="lazy_adam", device="cpu")
     with pytest.raises(ValueError, match="not in"):
         Trainer(tm, embedding_optimizer="sgd", device="cpu")
