@@ -22,7 +22,8 @@ checkout.  Phases, one JSON line each:
                 its storage and on 16384 occurrences of one row; fused Adam
                 at D = 12, on a table 4 bytes into its storage, and as one
                 launch over unequal tables, one no id touches and one of
-                no rows.
+                no rows; the embedding updates at the JAX chunk length 256
+                and at the port's, 1.
 3b. f4       -- the routes of shapes outside a kernel's domain against the
                 same calls on the CPU, with no launch counted: AutoInt at
                 D = 8 (two heads of width 4), a request and a train step;
@@ -160,6 +161,10 @@ checkout.  Phases, one JSON line each:
 20. ctr protocol -- the port's protocol ctr runner (fit with early stopping,
                 evaluate_auc) with the default models at the full widths,
                 rows cut to 200,000; every test AUC must be above 0.55.
+20b. ctr table dtype -- the runner's DLRM with --table-dtype bf16,
+                --embedding-optimizer fused_adam and --embedding-lr: a step
+                against the plain step (#4 on bf16 tables), then the runner
+                at 200,000 rows, one epoch, #4 counted.
 21. ctr timing -- kernel, plain and bound ms of the bi-interaction at FM's
                 and DeepFM's serving shapes; the flash kernels beside torch
                 SDPA at AutoInt's (4096, 2, 39, 8) and its train step's
@@ -190,10 +195,11 @@ checkout.  Phases, one JSON line each:
                 multitask --model esmm, mmoe, ple and mmoe --census on
                 files written there (1 epoch each); each prints its result
                 line and launches exactly what its path holds.
-24c. protocol seq -- the protocol runner's sasrec (drift 2.0), seqret, mind
-                and dssm modes at full widths, users cut to 20,000, one epoch
-                each: each prints its JSON line, launches the kernels of its
-                path and no other, and reports metrics in [0, 1].
+24c. protocol seq -- the protocol runner's sasrec (drift 2.0, its rows from
+                the native builder, counted), seqret, mind and dssm modes at
+                full widths, users cut to 20,000, one epoch each: each prints
+                its JSON line, launches the kernels of its path and no
+                other, and reports metrics in [0, 1].
 24d. multitask -- ESMM, MMoE and PLE at protocol multitask's widths on
                 200,000 realistic_multitask rows, one epoch each, head AUCs,
                 a request and one more step against the CPU; MMoE and PLE on
@@ -211,8 +217,12 @@ checkout.  Phases, one JSON line each:
                 Python parse with a Python FNV-1a; cli ctr --model dlrm
                 --bf16 --embed-dim 16 --data GLOB --stream
                 --embedding-optimizer fused_adam (26 tables of 2^20 x 16,
-                batch 4096, one epoch), its first 3 steps held against the
-                plain step, #1 and #4 counted, steps a second; the
+                batch 4096, one epoch, the native host prep at chunk
+                length 1, its arrays pinned), its first 3 steps held
+                against the plain step, #1 and #4 counted, steps a second;
+                prep ms, the prep's bytes and copy ms, a traced step's
+                split, #4 alone against its bound on f32 and bf16 tables
+                (three bf16 tables against the plain version); the
                 streaming evaluate_auc over the held-out file against the
                 array path (within 1e-6, above 0.6); the same model with
                 rowwise_adagrad and lazy_adam, 3 steps each against the
@@ -274,7 +284,7 @@ TAIL = 5000            # ragged last request
 TRAIN_STEPS = 10       # one fit epoch
 LR = 1e-3
 UPDATE_BLOCK = 512     # table rows per embedding-update block (host prep too)
-UPDATE_CH = 256
+UPDATE_CH = 256        # the JAX package's chunk length (the TPU's MXU width)
 
 # Tolerances, kernel against plain version on the same card:
 # - dot interaction: both sum D exact products in f32, in another order.
@@ -627,11 +637,12 @@ def check_mlp_bwd(rng, dev) -> float:
     return worst
 
 
-def embedding_inputs(rng, dev, vocab, skewed, block, d=EMBED_DIM, one_id=False):
+def embedding_inputs(rng, dev, vocab, skewed, block, d=EMBED_DIM, one_id=False,
+                     ch=UPDATE_CH):
     """One table's update inputs for a 16384-id batch: the cotangent rows
-    sorted by host prep, their ids and chunk pointers, and a random table
-    and optimizer state (as if after a few steps).  ``one_id``: every id
-    the same row."""
+    sorted by host prep at chunk length ``ch``, their ids and chunk
+    pointers, and a random table and optimizer state (as if after a few
+    steps).  ``one_id``: every id the same row."""
     import torch
 
     from recsys_tpu_torch.train.streaming_embed import host_prep_group
@@ -642,7 +653,7 @@ def embedding_inputs(rng, dev, vocab, skewed, block, d=EMBED_DIM, one_id=False):
         ids = np.minimum(rng.zipf(1.2, BATCH) - 1, vocab - 1).astype(np.int32)
     else:
         ids = rng.integers(0, vocab, BATCH).astype(np.int32)
-    ids2d, idx, cptr = host_prep_group(ids, vp=vocab, block=block, ch=UPDATE_CH)
+    ids2d, idx, cptr = host_prep_group(ids, vp=vocab, block=block, ch=ch)
     cot = (rng.standard_normal((BATCH, d)) * 1e-2).astype(np.float32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return {
@@ -656,12 +667,14 @@ def embedding_inputs(rng, dev, vocab, skewed, block, d=EMBED_DIM, one_id=False):
 
 def check_embedding_update(rng, dev) -> dict:
     """The fused embedding updates against their plain versions on one
-    bench-size table; returns the worst table error of each at the main
-    path's settings (f32 table, bf16 sums, no decay)."""
+    bench-size table, at the JAX chunk length and at the port's; returns
+    the worst table error of each at the main path's settings (f32 table,
+    bf16 sums, no decay)."""
     import torch
 
     from recsys_tpu_torch.kernels import dispatch
     from recsys_tpu_torch.kernels import embedding_update as emb_ref
+    from recsys_tpu_torch.train.streaming_embed import PREP_CH
 
     worst = {"embedding_adam": 0.0, "embedding_rowwise_adagrad": 0.0}
     # (skewed ids, table dtype, mm_bf16, weight decay, block): the last has
@@ -672,11 +685,12 @@ def check_embedding_update(rng, dev) -> dict:
              (True, torch.bfloat16, False, 0.0, UPDATE_BLOCK),
              (False, torch.float32, False, 0.01, UPDATE_BLOCK),
              (True, torch.float32, True, 0.01, 384)]
-    for skewed, p_dtype, mm_bf16, wd, block in cases:
-        a = embedding_inputs(rng, dev, VOCAB, skewed, block)
+    for (skewed, p_dtype, mm_bf16, wd, block), ch in itertools.product(
+            cases, (UPDATE_CH, PREP_CH)):
+        a = embedding_inputs(rng, dev, VOCAB, skewed, block, ch=ch)
         p = a["p"].to(p_dtype)
         name = (f"{'skewed' if skewed else 'uniform'} p={str(p_dtype)[6:]} "
-                f"mm_bf16={mm_bf16} wd={wd} block={block}")
+                f"mm_bf16={mm_bf16} wd={wd} block={block} ch={ch}")
         main = p_dtype == torch.float32 and mm_bf16 and wd == 0.0
         p_tol = BF16_TABLE_TOL if p_dtype == torch.bfloat16 else None
         got = [p.clone(), a["m"].clone(), a["v"].clone()]
@@ -965,12 +979,13 @@ def plain_train_step(tr, batch):
         for g, name in enumerate(tr.plan.table_names):
             cot = cot_all.index_select(0, db[f"embaux{g}_src"]).bfloat16()
             ids2d, cptr, st = db[f"embaux{g}_ids"], db[f"embaux{g}_ptr"], tr.emb_state[name]
+            block = min(UPDATE_BLOCK, tables[name].shape[0])  # as the Trainer's
             if tr.embedding_optimizer == "fused_adam":
                 emb_ref.fused_adam(tables[name], st["m"], st["v"], cot, ids2d, cptr, tr.step,
-                                   block=UPDATE_BLOCK, lr=LR)
+                                   block=block, lr=tr.embedding_lr)
             else:
                 emb_ref.fused_rowwise_adagrad(tables[name], st["acc"], cot, ids2d, cptr,
-                                              block=UPDATE_BLOCK, lr=LR)
+                                              block=block, lr=tr.embedding_lr)
     return loss.detach()
 
 
@@ -2645,16 +2660,27 @@ PROTOCOL_USERS = 20_000  # the protocol's 100,000, cut: the phase stays short
 
 
 def phase_protocol_seq(dev) -> dict:
-    """The port's protocol runner in the modes sasrec (drift 2.0), seqret,
-    mind and dssm at the full widths, users cut to PROTOCOL_USERS, one
-    epoch each: each prints its JSON line, launches the kernels of its path
-    and none other, and reports finite metrics.  {mode: report}."""
+    """The port's protocol runner in the modes sasrec (drift 2.0, its rows
+    from the native builder), seqret, mind and dssm at the full widths,
+    users cut to PROTOCOL_USERS, one epoch each: each prints its JSON line,
+    launches the kernels of its path and none other, and reports finite
+    metrics.  {mode: report}."""
     import io
 
     import torch
 
+    from recsys_tpu_torch.data import native
     from recsys_tpu_torch.kernels import dispatch
     from recsys_tpu_torch.tools import protocol
+
+    builds = []
+    builder = native.build_seq_leave_last2
+
+    def counted(*args, **kw):
+        builds.append(time.perf_counter())
+        out = builder(*args, **kw)
+        builds.append(time.perf_counter())
+        return out
 
     paths = {"sasrec": ("flash_attention_fwd", "flash_attention_bwd"),
              "seqret": ("pooled_gather", "topk_scores"),
@@ -2666,15 +2692,23 @@ def phase_protocol_seq(dev) -> dict:
         if mode == "sasrec":
             argv += ["--drift-scale", "2.0"]
         buf = io.StringIO()
+        builds.clear()
+        native.build_seq_leave_last2 = counted
         torch.cuda.synchronize()
         # the main path: counts zeroed just before, read just after
         dispatch.reset_launches()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            protocol.main(argv)
+        try:
+            with contextlib.redirect_stdout(buf):
+                protocol.main(argv)
+        finally:
+            native.build_seq_leave_last2 = builder
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(dispatch.LAUNCHES)
+        if len(builds) != (2 if mode == "sasrec" else 0):
+            raise AssertionError(f"protocol {mode}: the native sequence builder ran "
+                                 f"{len(builds) // 2} times")
         line = buf.getvalue().strip().splitlines()[-1]
         print(line, flush=True)
         rep = json.loads(line)
@@ -2688,6 +2722,8 @@ def phase_protocol_seq(dev) -> dict:
                                  f"{kernels}), metrics {metrics}")
         out[mode] = {"phase": "protocol seq", "mode": mode, "seconds": wall,
                      "launches": launches, "report": rep}
+        if builds:
+            out[mode]["native_builder_seconds"] = builds[1] - builds[0]
         emit(out[mode])
     return out
 
@@ -3207,13 +3243,21 @@ def phase_files_stream(paths: list, held: str) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     # the device half of a prepped step: the batch's copy to the card alone,
     # one step traced and split by kernel, and #4 alone at these shapes
-    copy_ms = []
+    copy_ms, prep_copy_ms = [], []
+    aux = {k: v for k, v in prepped.items() if k.startswith("embaux")}
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         db = trainer._to_device(prepped)
         torch.cuda.synchronize()
         copy_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        trainer._to_device(aux)
+        torch.cuda.synchronize()
+        prep_copy_ms.append((time.perf_counter() - t0) * 1e3)
+    if trainer.device.type == "cuda" and not all(isinstance(v, torch.Tensor) and v.is_pinned()
+                                                 for v in aux.values()):
+        raise AssertionError("files: the prep's arrays are not in pinned host memory")
     prof = profile_call(lambda: (trainer.train_step(prepped), torch.cuda.synchronize()),
                         classify=files_category)
     emit({"phase": "profile", "config": "files stream: one prepped step", **prof})
@@ -3230,6 +3274,9 @@ def phase_files_stream(paths: list, held: str) -> dict:
            "heldout_auc_array": auc_array, "auc_seconds": auc_s,
            "stream_alone_batches_per_s": passed / stream_s,
            "prep_ms_median": float(np.median(prep_ms)),
+           "chunk_length": int(aux["embaux0_ids"].shape[1]),
+           "prep_bytes": sum(np.asarray(v).nbytes for v in aux.values()),
+           "prep_copy_ms_median": float(np.median(prep_copy_ms)),
            "step_ms_median": float(np.median(step_ms)), "step_ms_min": float(np.min(step_ms)),
            "batch_bytes": sum(v.numel() * v.element_size() for v in db.values()),
            "copy_to_card_ms_median": float(np.median(copy_ms)), "step_profile": prof,
@@ -3237,10 +3284,12 @@ def phase_files_stream(paths: list, held: str) -> dict:
     emit(res)
     print(f"files stream: {res['steps_per_s_after_checked']:.1f} steps/s over the stream "
           f"(batch {FILES_BATCH}; the stream alone {res['stream_alone_batches_per_s']:.1f} "
-          f"batches/s, prep {res['prep_ms_median']:.2f} ms, a prepped step "
-          f"{res['step_ms_median']:.2f} ms, its copy to the card "
-          f"{res['copy_to_card_ms_median']:.2f} ms, #4 alone {adam['ms']:.2f} ms against a "
-          f"bound of {adam['bound_ms']:.2f} ms), held-out AUC {auc_stream:.4f}", flush=True)
+          f"batches/s, prep {res['prep_ms_median']:.2f} ms at ch {res['chunk_length']}, a "
+          f"prepped step {res['step_ms_median']:.2f} ms, its copy to the card "
+          f"{res['copy_to_card_ms_median']:.2f} ms, of which the prep's "
+          f"{res['prep_bytes'] / 1e6:.2f} MB {res['prep_copy_ms_median']:.2f} ms, #4 alone "
+          f"{adam['ms']:.3f} ms against a bound of {adam['bound_ms']:.3f} ms, on bf16 tables "
+          f"{adam['bf16_tables']['ms']:.3f} ms), held-out AUC {auc_stream:.4f}", flush=True)
     if not ok:
         raise AssertionError(f"files: held-out AUC {auc_stream} (array path {auc_array})")
     return res
@@ -3290,7 +3339,27 @@ def files_adam_timing(trainer, db: dict) -> dict:
            "tables": [len(args), FILES_BUCKETS, EMBED_DIM], "ids": FILES_BATCH,
            "bytes": nbytes}
     res["bound_ms"], res["bound_by"] = bound(nbytes, nops, F32_FLOPS)
+    # the same launch on bf16 tables (the runner's --table-dtype bf16): its
+    # time, and three tables held against the plain version
+    p16 = [t.bfloat16() for t in p]
+    m16, v16 = [t.clone() for t in m], [t.clone() for t in v]
+    want = {t: (p16[t].clone(), m16[t].clone(), v16[t].clone())
+            for t in (0, NUM_SPARSE // 2, NUM_SPARSE - 1)}
+    dispatch.fused_embedding_adam_pass(p16, m16, v16, cot, ids, ptrs, step, blocks=blocks, lr=LR)
+    worst = 0.0
+    for t, w in want.items():
+        emb_ref.fused_adam(*w, cot[t], ids[t], ptrs[t], step, block=blocks[t], lr=LR)
+        for key, u, x in zip("pmv", (p16[t], m16[t], v16[t]), w):
+            err = check_close(f"embedding_adam bf16 table {t} at the stream's shapes {key}",
+                              u.float(), x.float(), BF16_TABLE_TOL if key == "p" else ADAM_TOL)
+            worst = max(worst, err["max_abs_err"]) if key == "p" else worst
+    b16 = nbytes - 2 * 2 * sum(t.numel() for t in p)  # p read and written in 2 bytes, not 4
+    res["bf16_tables"] = {"ms": cuda_ms(lambda: dispatch.fused_embedding_adam_pass(
+        p16, m16, v16, cot, ids, ptrs, step, blocks=blocks, lr=LR), iters=10, warmup=2),
+        "bytes": b16, "max_abs_err": worst}
+    res["bf16_tables"]["bound_ms"], _ = bound(b16, nops, F32_FLOPS)
     emit({"phase": "timing", "kernel": "embedding_adam at the stream's shapes", **res})
+    del p16, m16, v16, want
     return res
 
 
@@ -3831,6 +3900,55 @@ def phase_ctr_protocol(dev) -> dict:
     return res
 
 
+def phase_ctr_table_dtype(dev) -> dict:
+    """The runner's ``--table-dtype bf16 --embedding-optimizer fused_adam``
+    on DLRM, where #4 updates bf16 tables: one step of the runner's model
+    held against the plain step, then ``run_ctr`` on it at CTR_ROWS rows,
+    one epoch, with ``embedding_lr``, #4's launches counted."""
+    import torch
+
+    from recsys_tpu_torch.data.realistic import realistic_criteo
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.models.ctr.dlrm import DLRM
+    from recsys_tpu_torch.tools.protocol import ctr_model_kwargs, run_ctr
+    from recsys_tpu_torch.train.loop import Trainer
+
+    schema, data, _ = realistic_criteo(num_examples=2 * CTR_BATCH, embed_dim=EMBED_DIM, seed=3)
+    torch.manual_seed(0)
+    trainer = Trainer(DLRM(schema, device=dev, **ctr_model_kwargs("dlrm", "fused_adam", "bf16")),
+                      learning_rate=LR, embedding_optimizer="fused_adam")
+    if {t.dtype for t in trainer.tables().values()} != {torch.bfloat16}:
+        raise AssertionError("ctr table dtype: the runner's tables are not bf16")
+    trainer.train_step({k: v[CTR_BATCH:] for k, v in data.items()})  # a step of history
+    batch = {k: v[:CTR_BATCH] for k, v in data.items()}
+    ref = copy.deepcopy(trainer)
+    cmp = compare_step("ctr dlrm bf16 tables", trainer, ref, trainer.train_step(batch),
+                       plain_train_step(ref, batch))
+    del trainer, ref
+    steps = int(int(CTR_ROWS * 0.8) * 0.9) // CTR_BATCH
+    torch.cuda.synchronize()
+    # the main path: counts zeroed just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_ctr(rows=CTR_ROWS, models=("dlrm",), batch_size=CTR_BATCH, epochs=1,
+                  embedding_optimizer="fused_adam", embedding_lr=LR, table_dtype="bf16",
+                  device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    auc = rep["models"]["dlrm"]["test_auc"]
+    res = {"phase": "ctr table dtype", "seconds": wall, "launches": launches, "steps": steps,
+           "step_check": cmp, **rep}
+    emit(res)
+    print(f"ctr protocol dlrm, bf16 tables, fused Adam: AUC {auc:.4f}, {steps} steps, "
+          f"{rep['models']['dlrm']['fit_examples_per_s']:.0f} fit examples/s", flush=True)
+    if launches["embedding_adam"] != steps or rep.get("table_dtype") != "bf16" or \
+            not auc > CTR_AUC_FLOOR:
+        raise AssertionError(f"ctr table dtype: launches {launches} (#4 {steps} expected), "
+                             f"report {rep}")
+    return res
+
+
 def phase_ctr_timing(rng, dev) -> dict:
     """Kernel, plain and bound ms of the bi-interaction at FM's and DeepFM's
     serving shapes (4096 x 39 and x 26 fields x 16, f32); the flash forward
@@ -4158,6 +4276,7 @@ def main() -> int:
     ctr_serve = phase_ctr_serve(rng, dev)
     ctr_steps = phase_ctr_train_step(rng, dev)
     ctr_protocol = phase_ctr_protocol(dev)
+    ctr_bf16_tables = phase_ctr_table_dtype(dev)
     timing.update(phase_ctr_timing(rng, dev))
     worst.update(phase_probe_check(rng, dev))
     probes = phase_probes(dev)
@@ -4199,7 +4318,7 @@ def main() -> int:
     kernels = []
     runs = [*serve.values(), *train.values(), sas_serve, *sas_train.values(), sas_cli,
             yt_serve, yt_fit, yt_after, *ctr_serve.values(), *ctr_steps.values(),
-            ctr_protocol, probes, mind, {"launches": mind["train_launches"]},
+            ctr_protocol, ctr_bf16_tables, probes, mind, {"launches": mind["train_launches"]},
             *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
             *cli_runs.values(), *protocol_seq.values(), ncf, *din.values(),
             *multitask.values(), *protocol_mt.values(),

@@ -9,15 +9,19 @@ DataFrames, read from the files as ``pandas.read_csv`` types them
 (``table.read_table``).  The functions that draw random
 numbers draw from their generator in the JAX package's order, so the same
 seed gives the same arrays bit for bit; the retrieval dataset draws none
-and is bit-equal outright.  The JAX package's native C++ version of the
-SASRec dataset is not ported: ``create_sasrec_dataset`` takes the numpy
-builder, where the JAX one takes the native builder when it can build it.
+and is bit-equal outright.  ``build_sasrec_dataset(use_native=...)`` takes
+the native SASRec builder (``data/native.py``), whose negatives follow the
+JAX native builder's PCG32 streams; ``create_sasrec_dataset`` takes it
+when it builds, as the JAX one does.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
 from recsys_tpu_torch.core.features import FeatureSchema, SparseFeature
+from recsys_tpu_torch.data import native
 from recsys_tpu_torch.data.table import read_table
 
 AGE_BINS = (0, 15, 25, 35, 45, 60, 100)
@@ -56,9 +60,10 @@ def create_ncf_dataset(path: str, **kw):
 def create_sasrec_dataset(ratings_csv: str, maxlen: int = 50, test_neg_num: int = 20,
                           min_item_count: int = 5, seed: int = 2020):
     """``build_sasrec_dataset`` of an ml-latest ``ratings.csv`` (header
-    userId, movieId, rating, timestamp)."""
+    userId, movieId, rating, timestamp), through the native builder where
+    it builds (``use_native='auto'``)."""
     return build_sasrec_dataset(read_ratings(ratings_csv), maxlen, test_neg_num,
-                                min_item_count, seed)
+                                min_item_count, seed, use_native="auto")
 
 
 def synthetic_ratings(num_users: int = 200, num_items: int = 100,
@@ -214,7 +219,7 @@ def build_ncf_dataset(ratings: dict, train_neg_num: int = 1, test_neg_num: int =
 
 def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20,
                          min_item_count: int = 5, seed: int = 2020,
-                         all_positions: bool = False):
+                         all_positions: bool = False, use_native: bool | str = False):
     """Returns (num_items, train, val, test), each split a dict of int32
     ``hist`` (N, maxlen), ``pos`` and ``neg``.
 
@@ -224,7 +229,28 @@ def build_sasrec_dataset(ratings: dict, maxlen: int = 50, test_neg_num: int = 20
     prefixes (pos (N,), one sampled negative each) or, with
     ``all_positions``, one row per user whose position t predicts the next
     item (pos and neg (N, maxlen)).  Validation targets the second-to-last
-    item, test the last, each against ``test_neg_num`` sampled negatives."""
+    item, test the last, each against ``test_neg_num`` sampled negatives.
+
+    ``use_native`` (``'auto'``, True or False) builds the rows with the
+    native builder (``native.build_seq_leave_last2``): the same rows, the
+    negatives from its PCG32 stream a user rather than numpy's generator.
+    True raises where the library cannot be built; ``'auto'`` then warns
+    and takes the numpy builder, as the JAX ``'auto'`` falls back."""
+    if use_native:
+        try:
+            native.library()
+        except RuntimeError as e:
+            if use_native is True:
+                raise
+            warnings.warn(f"build_sasrec_dataset: the native builder is unavailable, "
+                          f"using the numpy builder ({e})", RuntimeWarning, stacklevel=2)
+        else:
+            num_items, iid, starts, _ = _kept_sequences(ratings, min_item_count)
+            user_off = np.append(starts, len(iid)).astype(np.int64)
+            train, val, test = native.build_seq_leave_last2(
+                iid, user_off, maxlen, num_items, test_neg_num, seed=seed,
+                all_positions=all_positions)
+            return num_items, train, val, test
     rng = np.random.default_rng(seed)
     user = np.asarray(ratings["user_id"])
     item = np.asarray(ratings["item_id"])

@@ -17,15 +17,18 @@ vocabularies, 13 dense features), an 80/20 split by one permutation from
 the seed, 10% of train held out for validation, Adam at 1e-3, batch 512, up
 to 10 epochs with early stopping on the validation loss (patience 1, best
 weights restored), then test AUC, also as a share of the generator's oracle
-margin.  The sequence modes run on ``realistic_ratings`` (100,000 users,
-20,000 items): ``ncf`` leave-last-2 with one train negative and 100 test
-negatives, pairwise BCE, HR@10 and NDCG@10 every second epoch;
-``sasrec`` leave-last-2 with 20 test negatives, all-position training,
-HR@10 and NDCG@10; ``seqret`` (YoutubeDNN) and ``mind`` the next-item
-retrieval protocol with the logQ-corrected in-batch softmax and recall@10
-over the whole catalog; ``din`` the Amazon protocol on the ratings'
-categories (histories of 40, one negative a positive, at most 12 train
-positions a user, early stopping) and test AUC; ``dssm`` the two towers
+margin; ``--table-dtype bf16`` keeps the tables in bf16 (their fused or
+sparse optimizer state stays f32), ``--embedding-lr`` gives the embedding
+optimizer its own rate.  The sequence modes run on ``realistic_ratings``
+(100,000 users, 20,000 items): ``ncf`` leave-last-2 with one train negative
+and 100 test negatives, pairwise BCE, HR@10 and NDCG@10 every second epoch;
+``sasrec`` leave-last-2 with 20 test negatives, all-position training
+(rows from the native builder, as the JAX runner's), HR@10 and NDCG@10;
+``seqret`` (YoutubeDNN) and ``mind`` the next-item retrieval protocol
+with the logQ-corrected in-batch softmax and recall@10 over the whole
+catalog; ``din`` the Amazon protocol on the ratings' categories
+(histories of 40, one negative a positive, at most 12 train positions a
+user, early stopping) and test AUC; ``dssm`` the two towers
 (DSSM and SENet with the in-batch softmax on positives, FM-match with BCE
 on rated pairs) with the side features of ``return_meta`` and recall@10 of
 each user's last item.  ``multitask``: ESMM, MMoE and PLE on
@@ -97,12 +100,19 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def ctr_model_kwargs(name: str, embedding_optimizer: str | None = None) -> dict:
+TABLE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def ctr_model_kwargs(name: str, embedding_optimizer: str | None = None,
+                     table_dtype: str = "f32") -> dict:
     """The protocol's options for model ``name``: DLRM computes in bf16;
-    a fused embedding optimizer needs the tables' tap."""
+    an embedding optimizer needs the tables' tap; ``table_dtype`` is the
+    tables' (master) dtype."""
     kw = {"compute_dtype": torch.bfloat16} if name == "dlrm" else {}
     if embedding_optimizer:
         kw["sparse_embed_grads"] = True
+    if table_dtype != "f32":
+        kw["embed_kw"] = {"param_dtype": TABLE_DTYPES[table_dtype]}
     return kw
 
 
@@ -121,9 +131,15 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
             embed_dim: int = 16, batch_size: int = 512, epochs: int = 10, seed: int = 0,
             patience: int | None = 1, lr: float = 1e-3,
             embedding_optimizer: str | None = None, teacher: str = "fm",
+            embedding_lr: float | None = None, table_dtype: str = "f32",
             device=None) -> dict:
     """The CTR AUC protocol on ``device`` (default the card); returns the
-    report.  ``patience=None`` lifts early stopping (fixed ``epochs``)."""
+    report.  ``patience=None`` lifts early stopping (fixed ``epochs``);
+    ``embedding_lr`` the embedding optimizer's rate (without an
+    ``embedding_optimizer`` it goes unused, as in the JAX runner);
+    ``table_dtype`` 'f32' or 'bf16' the tables'."""
+    if table_dtype not in TABLE_DTYPES:
+        raise ValueError(f"table_dtype={table_dtype!r} not in {tuple(TABLE_DTYPES)}")
     t0 = time.time()
     schema, data, meta = realistic_criteo(num_examples=rows, embed_dim=embed_dim, seed=seed,
                                           teacher=teacher)
@@ -140,14 +156,18 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
     if embedding_optimizer:
         out["embedding_optimizer"] = embedding_optimizer
     out["teacher"] = teacher
+    if table_dtype != "f32":
+        out["table_dtype"] = table_dtype
     if patience is None:
         out["early_stopping"] = "lifted"
     n_fit = int(cut * 0.9)  # fit's training part after its validation split
     for name in models:
         t0 = time.time()
         torch.manual_seed(seed)  # each model's initial weights follow the seed alone
-        tr = Trainer(CTR_MODELS[name](schema, **ctr_model_kwargs(name, embedding_optimizer)),
+        tr = Trainer(CTR_MODELS[name](schema, **ctr_model_kwargs(name, embedding_optimizer,
+                                                                 table_dtype)),
                      learning_rate=lr, embedding_optimizer=embedding_optimizer,
+                     embedding_lr=embedding_lr if embedding_optimizer else None,
                      device=device)
         t_fit = time.time()
         hist = tr.fit(train, batch_size=batch_size, epochs=epochs, validation_split=0.1,
@@ -239,7 +259,7 @@ def run_sasrec(users: int = 100_000, items: int = 20_000, maxlen: int = 50,
     ratings = realistic_ratings(num_users=users, num_items=items, seed=seed,
                                 drift_scale=drift_scale)
     ni, train, _, test = build_sasrec_dataset(ratings, maxlen=maxlen, test_neg_num=20,
-                                              all_positions=True)
+                                              all_positions=True, use_native="auto")
     _log(f"built {len(train['hist'])} train sequences / {ni} items in {time.time() - t0:.1f}s")
     _warm_kernels(device)
     torch.manual_seed(seed)
@@ -665,6 +685,11 @@ def main(argv=None) -> None:
     p.add_argument("--embedding-optimizer", default=None,
                    choices=["lazy_adam", "rowwise_adagrad", "fused_adam",
                             "fused_rowwise_adagrad"])
+    p.add_argument("--embedding-lr", type=float, default=None,
+                   help="ctr: the embedding optimizer's own rate (unused without "
+                        "--embedding-optimizer)")
+    p.add_argument("--table-dtype", default="f32", choices=list(TABLE_DTYPES),
+                   help="ctr: the tables' master dtype")
     p.add_argument("--drift-scale", type=float, default=6.0,
                    help="sasrec generator's sequence drift; 2.0 does not saturate HR@10")
     p.add_argument("--device", default=None, help="default: the card")
@@ -683,6 +708,7 @@ def main(argv=None) -> None:
                       args.embed_dim, batch_size, epochs, args.seed,
                       patience=args.patience or None, lr=args.lr,
                       embedding_optimizer=args.embedding_optimizer, teacher=args.teacher,
+                      embedding_lr=args.embedding_lr, table_dtype=args.table_dtype,
                       device=args.device)
     elif args.mode == "ncf":
         rep = run_ncf(args.users, args.items, batch_size, epochs, args.seed, device=args.device)

@@ -119,7 +119,9 @@ class Trainer:
             self.emb_state = sparse_embed.init_state(
                 self.tables(), "lazy_adam" if kind == "adam" else kind)
             if embedding_optimizer in FUSED:
-                self._prep = streaming_embed.make_host_prep(self.plan)
+                # on the card the prep's arrays come from pinned memory
+                self._prep = streaming_embed.make_host_prep(
+                    self.plan, pin=self.device.type == "cuda")
         params = [p for p in self.model.parameters() if p.requires_grad]
         if weight_decay > 0.0:
             self.optimizer = torch.optim.AdamW(params, lr=learning_rate,
@@ -176,7 +178,10 @@ class Trainer:
             start += rows
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        """The batch on the device: numpy arrays copied, tensors (the fused
+        prep's, pinned on the card) copied ``non_blocking``."""
+        return {k: v.to(self.device, non_blocking=True) if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items() if not k.startswith("_")}
 
     # -- training ---------------------------------------------------------

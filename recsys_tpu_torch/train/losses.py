@@ -1,7 +1,8 @@
 """Loss functions (the port's copy of recsys_tpu.train.losses): BCE on
 logits and on probabilities, the weighted multi-task BCE, the pairwise
 objective of NCF and SASRec, the in-batch and the explicit-negative
-sampled softmax with logQ correction, and the log-uniform sampler."""
+sampled softmax with logQ correction, the log-uniform sampler, and the
+explicit l2 penalty."""
 from __future__ import annotations
 
 import math
@@ -117,3 +118,13 @@ def sampled_softmax(query_embs: torch.Tensor, pos_embs: torch.Tensor, neg_embs: 
         neg_logits = neg_logits.masked_fill(hit, -torch.inf)
     logits = torch.cat([pos_logit.to(neg_logits.dtype), neg_logits], dim=1)
     return -F.log_softmax(logits, dim=-1)[:, 0].mean()
+
+
+def l2_regularization(params, scale: float) -> torch.Tensor:
+    """``scale`` times the sum of squares of every parameter of a module, or
+    of every tensor of an iterable (the JAX ``l2_regularization`` over a
+    params pytree; the reference's embed_reg / w_reg)."""
+    tensors = list(params.parameters() if isinstance(params, torch.nn.Module) else params)
+    if not tensors:
+        return torch.zeros(())
+    return scale * sum(t.square().sum() for t in tensors)

@@ -5,10 +5,11 @@ Exact dense-optimizer semantics: every table row is updated, duplicate ids
 sum, as a dense scatter-add followed by dense Adam (or rowwise AdaGrad)
 would, in one pass over each table.  Per step and table group:
 
-1. HOST (numpy, in the Trainer's prefetch thread): stable-sort the batch's
-   ids of the group, bucket them by table block into ``ch``-row chunks at a
-   static chunk count, and emit ``(ids2d, src, cptr)``
-   (:func:`host_prep_group`, :func:`make_host_prep`).
+1. HOST (the native library, ``data/native.py``, in the Trainer's
+   prefetch thread): stable-sort the batch's ids of the group, bucket them
+   by table block into ``ch``-slot chunks at a static chunk count, and emit
+   ``(ids2d, src, cptr)`` (:func:`make_host_prep`; :func:`host_prep_group`
+   is its plain numpy version).
 2. DEVICE: permute the per-occurrence cotangent of the ``perturb_out`` tap
    into sorted order with one ``index_select``, then one fused kernel
    launch updates the table and its optimizer state in place
@@ -20,11 +21,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from recsys_tpu_torch.data import native
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.train.sparse_embed import EmbedPlan
 
 DEFAULT_BLOCK = 512  # table rows per kernel block: 196 blocks per 100k-row table
-DEFAULT_CH = 256
+DEFAULT_CH = 256  # the JAX package's chunk length: the TPU's one-hot MXU width
+# The port's chunk length.  The CUDA kernels walk a block's chunks slot by
+# slot, so a chunk is no unit of their work: what ``ch`` costs is each
+# touched block's padding (up to ch - 1 slots) and the nb·ch static padding
+# slots of a table, in the host's fill, the copy to the card and the
+# cotangent gather.  ``tools/prep_sweep.py`` read all of them fall, and #4
+# stay within 1%, from 256 down to 1 at both shapes that prep (26 tables of
+# 2^20 rows with 4096 ids, of 100,000 with 16384; PERF.md's sweep), so
+# every batch preps at 1, whatever the tables.
+PREP_CH = 1
 
 
 def host_prep_group(rows: np.ndarray, *, pack: int = 1, vp: int,
@@ -66,29 +77,44 @@ def host_prep_group(rows: np.ndarray, *, pack: int = 1, vp: int,
     return ids2d, idx, cptr
 
 
-def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = DEFAULT_CH):
-    """Returns ``prep(sparse (B, F) int) -> {aux key: np.ndarray}``.
+def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = PREP_CH,
+                   pin: bool = False):
+    """Returns ``prep(sparse (B, F) int) -> {aux key: array}``: the native
+    prep (``data.native.fused_prep_group``) of every group at chunk length
+    ``ch`` (one for every group: one launch of #4 takes one).
 
     Per group g: ``embaux{g}_ids`` and ``embaux{g}_ptr`` are
     :func:`host_prep_group`'s ``ids2d`` and ``cptr``; ``embaux{g}_src``
     maps each slot to its row of the tap's ``(B·F, D)`` cotangent, so the
-    device permutes with one ``index_select``.  Run it on the host, behind
-    the prefetch thread, as ``Trainer.fit`` does."""
-    geoms = [(max(v, 1), np.asarray(cols, np.int32), np.asarray(offs, np.int32))
-             for v, cols, offs in zip(plan.group_vocab, plan.group_cols,
-                                      plan.group_offsets)]
+    device permutes with one ``index_select``.  The arrays are numpy, or
+    with ``pin`` int32 tensors in pinned host memory (from torch's caching
+    host allocator, which reuses a block only after the copies recorded on
+    it have run), for ``non_blocking`` copies to the card.  Run it on the
+    host, behind the prefetch thread, as ``Trainer.fit`` does: the native
+    calls release the interpreter lock."""
+    geoms = []
+    for v, cols, offs in zip(plan.group_vocab, plan.group_cols, plan.group_offsets):
+        vp = max(v, 1)
+        geoms.append((vp, min(block, vp), np.asarray(cols, np.int32),
+                      np.asarray(offs, np.int32)))
+
+    def empty(shape):
+        if not pin:
+            a = np.empty(shape, np.int32)
+            return a, a
+        t = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+        return t, t.numpy()
 
     def prep(sparse: np.ndarray) -> dict:
-        b, f = sparse.shape
+        sparse = np.ascontiguousarray(sparse, np.int32)
+        b = sparse.shape[0]
         aux = {}
-        for g, (vp, cols, offs) in enumerate(geoms):
-            rows = (sparse[:, cols].astype(np.int32) + offs).T.reshape(-1)
-            ids2d, idx, cptr = host_prep_group(rows, vp=vp, block=min(block, vp), ch=ch)
-            # occurrence i of the group is row i % b of column cols[i // b]
-            tap_row = (np.arange(rows.size, dtype=np.int32) % b) * f + np.repeat(cols, b)
-            aux[f"embaux{g}_ids"] = ids2d
-            aux[f"embaux{g}_src"] = tap_row[idx]
-            aux[f"embaux{g}_ptr"] = cptr
+        for g, (vp, blk, cols, offs) in enumerate(geoms):
+            nc, nb = native.prep_geometry(b * len(cols), vp, blk, ch)
+            (ids2d, ids_np), (src, src_np), (cptr, cptr_np) = (
+                empty((nc, ch)), empty((nc * ch,)), empty((nb + 1,)))
+            native.fused_prep_group(sparse, cols, offs, vp, blk, ch, ids_np, src_np, cptr_np)
+            aux[f"embaux{g}_ids"], aux[f"embaux{g}_src"], aux[f"embaux{g}_ptr"] = ids2d, src, cptr
         return aux
 
     return prep

@@ -239,15 +239,21 @@ def test_create_ncf_dataset_is_bit_equal_to_jax():
 
 
 def test_create_sasrec_dataset_is_bit_equal_to_jax_python_builder():
-    """The JAX reader takes its native builder when it can build it; the
-    port keeps the numpy builder, so the reference is the JAX Python
-    builder on the same frame."""
+    """Both readers take their native builder when it builds (the port's
+    since its native builder exists): the port's reader is bit-equal to
+    the JAX reader, and its rows (not its negatives, which come from the
+    native PCG32 streams) to the JAX Python builder's on the same frame."""
     path = f"{ASSETS}/ml_latest_ratings.csv"
     got = movielens.create_sasrec_dataset(path, maxlen=20)
-    frame = pd.read_csv(path).rename(columns={"userId": "user_id", "movieId": "item_id"})
-    want = jax_movielens.build_sasrec_dataset(frame, maxlen=20, use_native=False)
+    want = jax_movielens.create_sasrec_dataset(path, maxlen=20)
     assert got[0] == want[0]
     _equal_splits(got[1:], want[1:])
+    frame = pd.read_csv(path).rename(columns={"userId": "user_id", "movieId": "item_id"})
+    python = jax_movielens.build_sasrec_dataset(frame, maxlen=20, use_native=False)
+    assert got[0] == python[0]
+    for g, w in zip(got[1:], python[1:]):
+        for k in ("hist", "pos"):
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 def test_read_ratings_reads_both_formats():
