@@ -229,10 +229,35 @@ checkout.  Phases, one JSON line each:
                 CPU in lockstep, rows outside each batch bit-unchanged,
                 step ms; fused_rowwise_adagrad fit over 3 batches (#5
                 counted); at 2^16 buckets a fit with checkpoint_path and
-                log_jsonl, restore, predictions bit-equal, the next step
-                against the saved trainer's; cli ctr --model deepfm --data
-                CSV (#6), ncf --ratings, match --ml100k, sasrec --ratings.
+                log_jsonl, restore, predictions and the next step's
+                loss and dense state bit-equal to the saved trainer's;
+                cli ctr --model deepfm --data CSV (#6), ncf --ratings,
+                match --ml100k, sasrec --ratings.
                 Its seconds go on the slice seconds line.
+24g. multidevice -- (a) NCCL at world size 1: the bench DLRM (batch 16384,
+                26 tables of 100k x 16, bf16, 4 microbatches, fused Adam)
+                three steps through the a2a and psum engines on the (1, 1)
+                mesh against the gather engine's steps there, and
+                cli ctr --model dlrm --bf16 --embedding-optimizer fused_adam
+                --embedding-engine a2a, then psum, one epoch of 4096-row
+                batches.  (b) gloo ranks spawned on this one card (CUDA
+                tensors staged through the host): worlds of 2 ((2, 1)
+                under both contracts, (1, 2)) and 4 ((2, 2) under both,
+                fused Adam and rowwise AdaGrad), three bench steps each,
+                in bf16 and in f32, against one rank stepping the same
+                microbatch rows (the first step's moments within 1e-5)
+                and the bench's (losses within 1e-3), every
+                rank's launches counted (#4 with 2 streams and in shard
+                windows, #5 both at once); every engine's lookup of a
+                16384 x 26 batch bit-equal to the gather and its gradient
+                the scatter-add; topk_scores_sharded against the whole
+                catalog's top-k (#10 on each shard); a save_sharded /
+                restore_sharded round trip, refused on a changed mesh.
+                (c) #4 and #5 with 2 streams, in a shard window and both,
+                against their plain versions, and timed at the mesh
+                steps' shapes.  Its (b) times are one-card gloo times,
+                not NCCL or several cards'; its seconds go on the slice
+                seconds line.
 25. kernels  -- the total time, then one line naming every kernel with its
                 launches and times.
 
@@ -249,6 +274,7 @@ import functools
 import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1144,9 +1170,14 @@ def moment_errors(trainer, ref) -> tuple[dict, dict]:
     return moments, short
 
 
-def compare_step(name, trainer, ref, loss_k, loss_p) -> dict:
+def compare_step(name, trainer, ref, loss_k, loss_p, exact: bool = False) -> dict:
     """One train step through the kernels (``trainer``) against the same
-    step through the plain versions (``ref``), from copies of one state."""
+    step through the plain versions (``ref``), from copies of one state.
+    With ``exact`` both went through the same kernels from one state: the
+    loss and the dense parameters and moments must agree bit for bit, which
+    no short gradient does (the power reading is shown but not needed);
+    #4 sums an id's duplicates in an order that varies from run to run, so
+    the tables keep their shares."""
     import torch
 
     out = {"loss": float(loss_k), "plain_loss": float(loss_p)}
@@ -1166,7 +1197,15 @@ def compare_step(name, trainer, ref, loss_k, loss_p) -> dict:
     moments, short = moment_errors(trainer, ref)
     out["worst_moment_rel_err"] = max(moments.values())
     out["grad_x0.8_least_moment_rel_err"] = min(short.values())
-    ok &= out["worst_moment_rel_err"] <= STEP_MOMENT_RTOL < out["grad_x0.8_least_moment_rel_err"]
+    if exact:
+        out["dense_bit_equal"] = bool(
+            torch.equal(loss_k, loss_p) and out["worst_moment_rel_err"] == 0.0
+            and all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd
+                    if not k.startswith("embedding.")))
+        ok &= out["dense_bit_equal"]
+    else:
+        ok &= (out["worst_moment_rel_err"] <= STEP_MOMENT_RTOL
+               < out["grad_x0.8_least_moment_rel_err"])
     out["ok"] = ok
     emit({"phase": "check", "case": f"train step {name} kernels vs plain", **out,
           "param_share_limit": STEP_P_SHARE, "state_share_limit": STEP_STATE_SHARE,
@@ -3499,8 +3538,9 @@ def phase_files_fused_adagrad(schema, batches: list, dev) -> dict:
 def phase_files_checkpoint(paths: list, held: str, tmp: str, dev) -> dict:
     """At 2^16 buckets: ``fit`` over the training stream with
     ``checkpoint_path`` and ``log_jsonl``, ``restore`` into a fresh
-    Trainer, its predictions bit-equal to the saved trainer's and the next
-    step held against the saved trainer's next step."""
+    Trainer, its predictions bit-equal to the saved trainer's and its next
+    step's loss and dense parameters bit-equal to the saved trainer's next
+    step's."""
     import torch
 
     from recsys_tpu_torch.data.streaming import CriteoStream
@@ -3537,7 +3577,7 @@ def phase_files_checkpoint(paths: list, held: str, tmp: str, dev) -> dict:
                                    shuffle=False)))
     same = np.array_equal(restored.predict(batch), saved.predict(batch))
     cmp = compare_step("files checkpoint: restored vs saved", restored, saved,
-                       restored.train_step(batch), saved.train_step(batch))
+                       restored.train_step(batch), saved.train_step(batch), exact=True)
     recs = [json.loads(line) for line in Path(log).read_text().splitlines()]
     keys_ok = [sorted(r) for r in recs] == [["epoch", "epoch_seconds", "loss", "step"]] and \
         recs[0]["step"] == steps
@@ -4218,6 +4258,425 @@ def phase_probe_timing(rng, dev) -> dict:
     return res
 
 
+
+# -- multidevice ----------------------------------------------------------------
+MD_STEPS = 3             # steps of each mesh run, held against the one-rank steps
+MD_KEEP = ("embedding.table_0", "embedding.table_13", "embedding.table_25", "bottom", "top",
+           "emb_state.table_0.", "emb_state.table_13.", "emb_state.table_25.")
+# (mesh, contract, embedding optimizer, f32 compute) of the spawned worlds
+# on the one card: the bench configuration (bf16 compute, bf16 table sums)
+# on every mesh and contract, and f32 runs; all held tightly against one
+# rank stepping the same microbatch rows
+MD_RUNS = {2: [((2, 1), "global", "fused_adam", False), ((2, 1), "local", "fused_adam", False),
+               ((1, 2), "global", "fused_adam", False), ((2, 1), "global", "fused_adam", True),
+               ((2, 1), "local", "fused_adam", True),
+               ((1, 2), "global", "fused_rowwise_adagrad", True)],
+           4: [((2, 2), "global", "fused_adam", False), ((2, 2), "local", "fused_adam", False),
+               ((2, 2), "local", "fused_rowwise_adagrad", False),
+               ((2, 2), "global", "fused_adam", True), ((2, 2), "local", "fused_adam", True),
+               ((2, 2), "global", "fused_rowwise_adagrad", True)]}
+# A mesh's first step against one rank's over the same microbatch rows
+# (a data axis of n splits each microbatch n ways, so the one-rank
+# reference runs n·MICROBATCH microbatches): the first moments within
+# this in norm.  Only the order of f32 sums differs (2.1e-7 read on a CPU
+# at the bench widths, 7.0e-7 on the card at (2, 1) in f32); a gradient
+# summed twice over an axis reads 1.
+MD_MOMENT_RTOL = 1e-5
+# Every step's loss against one rank's, over the same microbatch rows and
+# over the bench's 4096-row microbatches: bf16 GEMMs over 2048 rows round
+# otherwise than over 4096, 3.1e-4 apart on the third step in bf16 at
+# (2, 1) on an H100 80GB HBM3 at 700 W (chip_smoke.py, PR 17)
+MD_LOSS_ATOL = 1e-3
+MD_ENGINES = [("psum", "psum", {}), ("dedup", "dedup", {}),
+              ("a2a", "a2a", {"capacity_factor": None, "dedup": True, "return_stats": True}),
+              ("a2a_pipelined", "a2a_pipelined",
+               {"num_chunks": 2, "capacity_factor": None, "return_stats": True}),
+              ("cols", "cols", {})]
+MD_CKPT_VOCAB = 10_000   # the checkpoint round trip's tables, cut: the files stay small
+MD_TOPK_ITEMS = 20_000   # protocol seqret's catalog, D = 32
+MD_TOPK_QUERIES = 8192
+
+
+def md_model_fn(schema, f32: bool = False, microbatches: int = MICROBATCH, **kw):
+    """The bench DLRM of ``schema`` for the mesh cases (``mesh_check.dlrm``),
+    in bf16 compute, or f32 with ``f32``, its dense tail in
+    ``microbatches`` slices of a rank's batch."""
+    import torch
+
+    from recsys_tpu_torch.tools import mesh_check
+
+    return functools.partial(mesh_check.dlrm, schema, bottom_units=BOTTOM, top_units=TOP,
+                             compute_dtype=None if f32 else torch.bfloat16,
+                             dense_microbatch=microbatches, sparse_embed_grads=True, **kw)
+
+
+def md_trainer_kw(opt: str, f32: bool) -> dict:
+    return {"embedding_optimizer": opt, "learning_rate": LR, "embedding_fused_bf16": not f32}
+
+
+def md_state_errors(got: dict, want: dict) -> dict:
+    """Of two kept states: each first moment's error in norm (the tables'
+    m, v or acc, the dense Adam's exp_avg: they follow the gradient, where
+    Adam's update normalises it away; a gradient summed twice over an axis
+    reads 1), and of each kept table and of the dense parameters together
+    the share of cells more than lr/10 apart and the share outside
+    ADAM_TOL."""
+    import torch
+
+    moments, past, outside, dense = {}, {}, {}, []
+    for k, w in want.items():
+        g, w = torch.from_numpy(got[k]).double(), torch.from_numpy(w).double()
+        if k.startswith(("emb_state.", "exp_avg.")):
+            moments[k] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        elif k.startswith("embedding."):
+            past[k], outside[k] = share_off(g, w, STEP_P_THRESH), share_not_close(g, w, ADAM_TOL)
+        else:
+            dense.append((g.reshape(-1), w.reshape(-1)))
+    g, w = (torch.cat(t) for t in zip(*dense))
+    past["dense"], outside["dense"] = share_off(g, w, STEP_P_THRESH), share_not_close(g, w, ADAM_TOL)
+    return {"worst_moment_rel_err": max(moments.values()),
+            "worst_table_share_past_lr_10": max(v for k, v in past.items() if k != "dense"),
+            "dense_share_past_lr_10": past["dense"],
+            "worst_share_outside_adam_tol": max(outside.values()),
+            "moments": moments, "past_lr_10": past, "outside_adam_tol": outside}
+
+
+def md_check_steps(label: str, got: dict, want: dict, bench: dict | None = None) -> dict:
+    """MD_STEPS steps on a mesh against the same steps on one rank, from
+    the same seeded init and over the same microbatch rows (``want``):
+    every loss finite and within MD_LOSS_ATOL, the first within 1e-5, every
+    first moment after it within MD_MOMENT_RTOL in norm, at most
+    STEP_STATE_SHARE of any kept table's cells (or the dense parameters')
+    outside ADAM_TOL.  Where a data axis split the bench's microbatches,
+    ``bench`` is one rank over them: every loss within MD_LOSS_ATOL of its,
+    and its first moments' errors shown leaf by leaf.  Later steps start
+    from states that already differ, and Adam's first steps from a zero
+    state move a cell whose gradient changed sign by lr the other way: the
+    final state's errors are shown."""
+    import torch
+
+    def losses_close(ref):
+        return bool(torch.isclose(gl, torch.tensor(ref["losses"]).double(), rtol=0.0,
+                                  atol=MD_LOSS_ATOL).all())
+
+    first = md_state_errors(got["first_state"], want["first_state"])
+    last = md_state_errors(got["state"], want["state"])
+    gl, wl = torch.tensor(got["losses"]).double(), torch.tensor(want["losses"]).double()
+    out = {"losses": got["losses"], "one_rank_losses": want["losses"],
+           "loss_max_abs_diff": float((gl - wl).abs().max()),
+           "first": {k: v for k, v in first.items() if k.startswith(("worst", "dense"))},
+           "first_moments": first["moments"],
+           "last": {k: v for k, v in last.items() if k.startswith(("worst", "dense"))},
+           "moment_rel_err_limit": MD_MOMENT_RTOL, "loss_atol": MD_LOSS_ATOL}
+    ok = bool(torch.isfinite(gl).all()) and losses_close(want)
+    ok &= bool(torch.isclose(gl[0], wl[0], rtol=1e-5, atol=1e-5))
+    ok &= first["worst_moment_rel_err"] <= MD_MOMENT_RTOL
+    ok &= first["worst_share_outside_adam_tol"] <= STEP_STATE_SHARE
+    if bench is not None:
+        out["bench_microbatch_losses"] = bench["losses"]
+        out["bench_microbatch_loss_max_abs_diff"] = float(
+            (gl - torch.tensor(bench["losses"]).double()).abs().max())
+        out["bench_microbatch_first_moments"] = md_state_errors(
+            got["first_state"], bench["first_state"])["moments"]
+        ok &= losses_close(bench)
+    out["ok"] = ok
+    emit({"phase": "check", "case": f"multidevice {label} vs one rank", **out})
+    if not ok:
+        raise AssertionError(f"multidevice {label}: steps disagree with one rank's: {out}, "
+                             f"first step {first}")
+    return out
+
+
+def md_update_inputs(rng, dev, n_ids: int, streams: int, shards: int, vocab=VOCAB):
+    """One table's fused-update inputs in a mesh's form: ``streams``
+    streams of ``n_ids`` ids each prepped at the port's chunk length with
+    the fences of ``shards`` row shards, and a random table shard (the
+    last) with its optimizer state; ``window_ids`` counts the ids that
+    fall in that shard's rows."""
+    import torch
+
+    from recsys_tpu_torch.train.streaming_embed import PREP_CH, host_prep_group
+
+    vs = vocab // shards
+    parts, window_ids = [], 0
+    for _ in range(streams):
+        ids = rng.integers(0, vocab, n_ids).astype(np.int32)
+        window_ids += int(((ids >= vocab - vs) & (ids < vocab)).sum())
+        cot = (rng.standard_normal((n_ids, EMBED_DIM)) * 1e-2).astype(np.float32)
+        i2, ix, cp = host_prep_group(ids, vp=vocab, block=min(UPDATE_BLOCK, vs), ch=PREP_CH,
+                                     shards=shards)
+        parts.append((cot[ix], i2, cp))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cot, ids2d, cptr = (to(np.concatenate(x)) for x in zip(*parts))
+    return {"cot": cot.bfloat16(), "ids2d": ids2d, "cptr": cptr,
+            "p": to(rng.uniform(-0.05, 0.05, (vs, EMBED_DIM)).astype(np.float32)),
+            "m": to((rng.standard_normal((vs, EMBED_DIM)) * 1e-3).astype(np.float32)),
+            "v": to(rng.uniform(1e-8, 1e-4, (vs, EMBED_DIM)).astype(np.float32)),
+            "acc": to(rng.uniform(0, 1e-4, vs).astype(np.float32)),
+            "shard_index": shards - 1, "streams": streams, "ids": streams * n_ids,
+            "window_ids": window_ids, "window_blocks": -(-vs // min(UPDATE_BLOCK, vs))}
+
+
+def md_kernels(rng, dev) -> tuple[dict, dict]:
+    """#4 and #5 in the mesh forms against their plain versions on the card
+    (tables and state within ADAM_TOL, ACC_TOL and ADAGRAD_P_TOL), and alone
+    against their bytes bound at the step shapes: the local contract's two
+    streams of 8192 ids over 26 tables of 100k rows ((2, 1)), and the
+    shard window of 26 shards of 50k rows with the 16384-id prep of two
+    shards ((1, 2)).  Returns (worst table errors, timings)."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.kernels import embedding_update as emb_ref
+
+    worst = {"embedding_adam": 0.0, "embedding_rowwise_adagrad": 0.0}
+    forms = {"streams2": (BATCH // 2, 2, 1), "window": (BATCH, 1, 2),
+             "streams2_window": (BATCH // 2, 2, 2)}
+    for form, (n_ids, streams, shards) in forms.items():
+        a = md_update_inputs(rng, dev, n_ids, streams, shards)
+        kw = dict(block=UPDATE_BLOCK, lr=LR, streams=streams, shard_index=a["shard_index"])
+        got = [a[k].clone() for k in "pmv"]
+        want = [a[k].clone() for k in "pmv"]
+        dispatch.fused_embedding_adam(*got, a["cot"], a["ids2d"], a["cptr"], 3, **kw)
+        emb_ref.fused_adam(*want, a["cot"], a["ids2d"], a["cptr"], 3, **kw)
+        for key, u, v in zip("pmv", got, want):
+            err = check_close(f"embedding_adam {form} {key}", u, v, ADAM_TOL)
+            if key == "p":
+                worst["embedding_adam"] = max(worst["embedding_adam"], err["max_abs_err"])
+        got, want = [a["p"].clone(), a["acc"].clone()], [a["p"].clone(), a["acc"].clone()]
+        dispatch.fused_embedding_rowwise_adagrad(*got, a["cot"], a["ids2d"], a["cptr"], **kw)
+        emb_ref.fused_rowwise_adagrad(*want, a["cot"], a["ids2d"], a["cptr"], **kw)
+        err = check_close(f"embedding_rowwise_adagrad {form} p", got[0], want[0],
+                          ADAGRAD_P_TOL)
+        check_close(f"embedding_rowwise_adagrad {form} acc", got[1], want[1], ACC_TOL)
+        worst["embedding_rowwise_adagrad"] = max(worst["embedding_rowwise_adagrad"],
+                                                 err["max_abs_err"])
+    timing = {"embedding_adam": {}, "embedding_rowwise_adagrad": {}}
+    for form in ("streams2", "window"):
+        n_ids, streams, shards = forms[form]
+        tabs = [md_update_inputs(rng, dev, n_ids, streams, shards) for _ in range(NUM_SPARSE)]
+        vd = tabs[0]["p"].numel()
+        # of the batch, what a table's shard must read: the cotangent rows
+        # (bf16) and ids of the real occurrences in its rows, and each
+        # stream's pointers of its window
+        stream_in = [t["window_ids"] * (EMBED_DIM * 2 + 4) + streams * (t["window_blocks"] + 1) * 4
+                     for t in tabs]
+        cols = [[t[k] for t in tabs] for k in ("p", "m", "v", "cot", "ids2d", "cptr")]
+        kw = dict(blocks=[UPDATE_BLOCK] * NUM_SPARSE, lr=LR, streams=streams,
+                  shard_indices=[tabs[0]["shard_index"]] * NUM_SPARSE)
+
+        def plain_pass():
+            for t in tabs:
+                emb_ref.fused_adam(*(t[k] for k in ("p", "m", "v", "cot", "ids2d", "cptr")), 3,
+                                   block=UPDATE_BLOCK, lr=LR, streams=streams,
+                                   shard_index=t["shard_index"])
+
+        t_adam = {f"{form}_ms": cuda_ms(lambda: dispatch.fused_embedding_adam_pass(
+                      *cols, 3, **kw), iters=10, warmup=2),
+                  f"{form}_plain_ms": cuda_ms(plain_pass, iters=1, warmup=1)}
+        t_adam[f"{form}_bound_ms"] = bound(NUM_SPARSE * 6 * 4 * vd + sum(stream_in),
+                                           NUM_SPARSE * 16 * vd, F32_FLOPS)[0]
+        a = tabs[0]
+        one = dict(block=UPDATE_BLOCK, lr=LR, streams=streams, shard_index=a["shard_index"])
+        t_ada = {f"{form}_ms": cuda_ms(lambda: dispatch.fused_embedding_rowwise_adagrad(
+                     a["p"], a["acc"], a["cot"], a["ids2d"], a["cptr"], **one)),
+                 f"{form}_plain_ms": cuda_ms(lambda: emb_ref.fused_rowwise_adagrad(
+                     a["p"], a["acc"], a["cot"], a["ids2d"], a["cptr"], **one), iters=5,
+                     warmup=1)}
+        t_ada[f"{form}_bound_ms"] = bound(2 * 4 * vd + 2 * 4 * a["acc"].numel() + stream_in[0],
+                                          8 * vd, F32_FLOPS)[0]
+        timing["embedding_adam"].update(t_adam)
+        timing["embedding_rowwise_adagrad"].update(t_ada)
+        emit({"phase": "timing", "kernel": f"embedding updates, mesh form {form}",
+              "tables": [NUM_SPARSE, a["p"].shape[0], EMBED_DIM], "streams": streams,
+              "ids_a_stream": n_ids, "shards": shards, "adam_26_tables": t_adam,
+              "rowwise_adagrad_one_table": t_ada})
+        del tabs, cols
+    return worst, timing
+
+
+def phase_multidevice(rng, dev) -> dict:
+    """(a) NCCL at world size 1: the bench DLRM's three steps through the a2a
+    and psum engines on the (1, 1) mesh against the gather engine's there;
+    the cli's ctr --model dlrm --bf16 --embedding-optimizer
+    fused_adam through both engines.  (b) Ranks spawned on this one card
+    over gloo (CUDA tensors staged through the host): worlds of 2 and 4,
+    three bench-width steps a mesh and contract against the one-rank
+    steps, every engine's lookup against the gather, the sharded top-k
+    against the whole catalog's, a sharded checkpoint round trip.  (c) #4
+    and #5 in the streams and shard-window forms against their plain
+    versions, and timed.  The (b) times are one-card gloo times, not NCCL
+    or several cards'."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from recsys_tpu_torch import cli
+    from recsys_tpu_torch.data.synthetic import synthetic_ctr
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.parallel.mesh import init_distributed
+    from recsys_tpu_torch.parallel.spawn import spawn
+    from recsys_tpu_torch.tools import mesh_check as mc
+    from recsys_tpu_torch.train.retrieval import topk_scores
+
+    res = {"runs": {}}
+    device = dev.type
+    on_card = device == "cuda"  # the CPU takes the plain versions, counting none
+    init_distributed(device)
+    backend = "nccl" if device == "cuda" else "gloo"
+    if dist.get_backend() != backend or dist.get_world_size() != 1:
+        raise AssertionError(f"multidevice: {dist.get_backend()} at world size "
+                             f"{dist.get_world_size()}, expected {backend} at 1")
+    schema, data = synthetic_ctr(num_examples=MD_STEPS * BATCH, num_dense=NUM_DENSE,
+                                 num_sparse=NUM_SPARSE, vocab_size=VOCAB, embed_dim=EMBED_DIM,
+                                 seed=2)
+    batches = [{k: v[s * BATCH:(s + 1) * BATCH] for k, v in data.items()}
+               for s in range(MD_STEPS)]
+    # one rank's steps, (optimizer, f32, microbatches) -> steps: over the
+    # bench's microbatches and over a mesh's, whose data axis of n splits
+    # each of them n ways
+    refs = {}
+    for shape, _, opt, f32 in (r for runs in MD_RUNS.values() for r in runs):
+        for nm in (MICROBATCH, MICROBATCH * shape[0]):
+            if (opt, f32, nm) not in refs:
+                refs[opt, f32, nm] = mc.train_steps(
+                    None, md_model_fn(schema, f32, nm), None, batches,
+                    trainer_kw=md_trainer_kw(opt, f32), device=device, seed=3, keep=MD_KEEP,
+                    first_state=True)
+    for (opt, f32, nm), ref in refs.items():  # what the microbatch rows alone move
+        if nm != MICROBATCH:
+            bench = refs[opt, f32, MICROBATCH]
+            emit({"phase": "multidevice", "part": f"one rank, {BATCH // nm}-row against "
+                  f"{BATCH // MICROBATCH}-row microbatches", "optimizer": opt,
+                  "compute": "f32" if f32 else "bf16", "losses": ref["losses"],
+                  "bench_microbatch_losses": bench["losses"],
+                  "first_moments": md_state_errors(ref["first_state"],
+                                                   bench["first_state"])["moments"]})
+    tkw = md_trainer_kw("fused_adam", False)
+    # the gather engine's steps on the (1, 1) mesh are the engines' reference
+    gather = mc.train_steps((1, 1), md_model_fn(schema), None, batches, trainer_kw=tkw,
+                            device=device, seed=3, keep=MD_KEEP, first_state=True)
+    for engine in ("a2a", "psum"):
+        label = f"{backend} (1, 1) {engine} engine"
+        dispatch.reset_launches()
+        got = mc.train_steps((1, 1), md_model_fn(schema, embed_kw={"engine": engine}), None,
+                             batches, trainer_kw=tkw, device=device, seed=3, keep=MD_KEEP,
+                             first_state=True)
+        launches = dict(dispatch.LAUNCHES)
+        if launches["embedding_adam"] != MD_STEPS * on_card:
+            raise AssertionError(f"multidevice {label}: launches {launches}")
+        res["runs"][label] = {"launches": launches, "step_seconds": got["seconds"] / (MD_STEPS - 1),
+                              "check": md_check_steps(label, got, gather)}
+    for engine in ("a2a", "psum"):
+        label = f"cli ctr dlrm {engine} {backend} (1, 1)"
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = cli.main(["ctr", "--model", "dlrm", "--bf16", "--embedding-engine", engine,
+                        "--embedding-optimizer", "fused_adam", "--epochs", "1",
+                        "--batch-size", "4096", "--device", device])
+        launches = dict(dispatch.LAUNCHES)
+        if bool(launches["embedding_adam"] and launches["dot_interaction"]) != on_card or \
+                not np.isfinite(out["loss"]).all() or not 0.0 <= out["auc"] <= 1.0:
+            raise AssertionError(f"multidevice {label}: {out}, launches {launches}")
+        res["runs"][label] = {"launches": launches, "seconds": time.perf_counter() - t0,
+                              "auc": out["auc"], "a2a_dropped": out.get("a2a_dropped")}
+    emit({"phase": "multidevice", "part": f"{backend} world 1", **res["runs"]})
+
+    # (b) spawned ranks on this card over gloo
+    crng = np.random.default_rng(5)
+    table = crng.normal(size=(VOCAB, EMBED_DIM)).astype(np.float32)
+    rows = crng.integers(0, VOCAB, (BATCH, NUM_SPARSE)).astype(np.int64)
+    weights = crng.normal(size=(BATCH, NUM_SPARSE, EMBED_DIM)).astype(np.float32)
+    items = crng.normal(size=(MD_TOPK_ITEMS, 32)).astype(np.float32)
+    queries = crng.normal(size=(MD_TOPK_QUERIES, 32)).astype(np.float32)
+    ck_schema, ck_data = synthetic_ctr(num_examples=2 * 4096, num_dense=NUM_DENSE,
+                                       num_sparse=NUM_SPARSE, vocab_size=MD_CKPT_VOCAB,
+                                       embed_dim=EMBED_DIM, seed=4)
+    ck_batches = [{k: v[i * 4096:(i + 1) * 4096] for k, v in ck_data.items()} for i in range(2)]
+    tmp = tempfile.mkdtemp(prefix="md_ckpt")
+    for world, runs in MD_RUNS.items():
+        jobs = [(mc.train_steps, (shape, md_model_fn(schema, f32), None, batches, contract,
+                                  md_trainer_kw(opt, f32)),
+                 {"device": device, "count_launches": True, "seed": 3, "keep": MD_KEEP,
+                  "first_state": True, "only_rank0": True})
+                for shape, contract, opt, f32 in runs]
+        shape = runs[-1][0]
+        jobs.append((mc.lookups, (shape, table, rows, weights, MD_ENGINES),
+                     {"device": device, "only_rank0": True}))
+        jobs.append((mc.topk, (shape, queries, items, 10), {"device": device}))
+        if world == 2:
+            jobs.append((mc.checkpoint, ((1, 2), (2, 1), f"{tmp}/ckpt",
+                                         md_model_fn(ck_schema), ck_batches,
+                                         {"embedding_optimizer": "fused_adam"}),
+                         {"device": device}))
+        foreign = []
+        t0 = time.perf_counter()
+        ranks = spawn(mc.run_jobs, world, jobs, device=device, backend="gloo", foreign=foreign)
+        if world == 2:
+            shutil.rmtree(tmp, ignore_errors=True)
+        spawn_s = time.perf_counter() - t0
+        if foreign:
+            raise AssertionError(f"multidevice: a rank imported {foreign}")
+        for i, (shape, contract, opt, f32) in enumerate(runs):
+            label = f"gloo {shape} {contract} {opt} {'f32' if f32 else 'bf16'} on one {device}"
+            got = ranks[0][i]
+            for r in ranks[1:]:
+                if r[i]["losses"] != got["losses"]:
+                    raise AssertionError(f"multidevice {label}: ranks' losses differ")
+            launches = {k: sum(r[i]["launches"].get(k, 0) for r in ranks)
+                        for k in dispatch.LAUNCHES}
+            kernel = "embedding_adam" if opt == "fused_adam" else "embedding_rowwise_adagrad"
+            per_step = 1 if opt == "fused_adam" else NUM_SPARSE
+            if launches[kernel] != world * per_step * MD_STEPS * on_card or \
+                    launches["dot_interaction"] != world * MICROBATCH * MD_STEPS * on_card:
+                raise AssertionError(f"multidevice {label}: launches {launches}")
+            res["runs"][label] = {"launches": launches,
+                                  "rank_step_seconds": got["seconds"] / (MD_STEPS - 1),
+                                  "check": md_check_steps(
+                                      label, got, refs[opt, f32, MICROBATCH * shape[0]],
+                                      refs[opt, f32, MICROBATCH] if shape[0] > 1 else None)}
+        # every engine's lookup against the gather, its gradient the scatter-add
+        look = ranks[0][len(runs)]
+        want_out = torch.from_numpy(table)[torch.from_numpy(rows)]
+        want_grad = torch.zeros(VOCAB, EMBED_DIM, dtype=torch.float64).index_add_(
+            0, torch.from_numpy(rows).reshape(-1),
+            torch.from_numpy(weights).reshape(-1, EMBED_DIM).double())
+        for label, (out, grad, dropped) in look.items():
+            if not np.array_equal(out, want_out.numpy()) or dropped not in (None, 0):
+                raise AssertionError(f"multidevice {shape} {label}: lookup is not the gather's")
+            check_close(f"multidevice {shape} {label} gradient", torch.from_numpy(grad),
+                        want_grad.float(), dict(rtol=1e-5, atol=1e-6))
+        emit({"phase": "check", "case": f"multidevice {shape} lookups bit-equal to the gather",
+              "engines": sorted(look), "ok": True})
+        v, i, topk_launches = ranks[0][len(runs) + 1]
+        with torch.inference_mode():
+            wv, wi = topk_scores(torch.from_numpy(queries).to(dev),
+                                 torch.from_numpy(items).to(dev), 10)
+        if not np.array_equal(i, wi.cpu().numpy()) or (topk_launches < 1) == on_card:
+            raise AssertionError(f"multidevice {shape}: sharded top-k ids differ from the "
+                                 f"whole catalog's (launches {topk_launches})")
+        check_close(f"multidevice {shape} sharded top-k values", torch.from_numpy(v),
+                    wv.cpu(), dict(rtol=1e-6, atol=1e-6))
+        res["runs"][f"gloo {shape} topk"] = {"launches": {
+            k: (sum(r[len(runs) + 1][2] for r in ranks) if k == "topk_scores" else 0)
+            for k in dispatch.LAUNCHES}}
+        if world == 2:
+            for r in ranks:
+                ck = r[-1]
+                if not (ck["equal"] and ck["next_loss_equal"] and ck["table_share"] == 0.5
+                        and ck["refused"]):
+                    raise AssertionError(f"multidevice: sharded checkpoint round trip {ck}")
+            emit({"phase": "check", "case": "multidevice (1, 2) sharded checkpoint round trip, "
+                  "(2, 1) refused", "ok": True, "refusal": ranks[0][-1]["refused"]})
+        emit({"phase": "multidevice", "part": f"gloo world {world} on one card",
+              "spawn_and_run_seconds": spawn_s,
+              **{k: v for k, v in res["runs"].items() if k.startswith("gloo")
+                 and k.split(" (")[1].split(")")[0] in {str(r[0])[1:-1] for r in runs}}})
+    res["worst"], res["timing"] = md_kernels(rng, dev)
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4288,7 +4747,11 @@ def main() -> int:
     multitask, slice_s["multitask"] = timed(phase_multitask, dev)
     protocol_mt, slice_s["protocol mt"] = timed(phase_protocol_mt, dev)
     files, slice_s["files"] = timed(phase_files, dev)
+    multidevice, slice_s["multidevice"] = timed(phase_multidevice, rng, dev)
     emit({"phase": "slice seconds", **slice_s, "total": sum(slice_s.values())})
+    for name in ("embedding_adam", "embedding_rowwise_adagrad"):
+        timing[name].update(multidevice["timing"][name])
+        worst[name] = max(worst[name], multidevice["worst"][name])
     timing["embedding_adam"].update({f"stream_{k}": files["stream"]["embedding_adam"][k]
                                      for k in ("ms", "plain_ms", "bound_ms")})
 
@@ -4322,7 +4785,7 @@ def main() -> int:
             *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
             *cli_runs.values(), *protocol_seq.values(), ncf, *din.values(),
             *multitask.values(), *protocol_mt.values(),
-            *(r for r in files.values() if "launches" in r)]
+            *(r for r in files.values() if "launches" in r), *multidevice["runs"].values()]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({
@@ -4332,7 +4795,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("unfused_ms", "launch_floor_ms", "f32_core_bound_ms",
-                                 "stream_ms", "stream_plain_ms", "stream_bound_ms") if k in t},
+                                 "stream_ms", "stream_plain_ms", "stream_bound_ms",
+                                 *(f"{form}_{x}" for form in ("streams2", "window")
+                                   for x in ("ms", "plain_ms", "bound_ms"))) if k in t},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card["nvidia_smi"], flush=True)

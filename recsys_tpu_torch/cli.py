@@ -32,12 +32,22 @@ loss:``.  ``match --ml100k`` reads an ml-100k directory, ``ncf --ratings``
 its ``u.data``, ``sasrec``, ``youtube`` and ``mind --ratings`` a ratings
 file (``u.data``, or an ml-latest CSV with a header).  ``din`` reads an
 Amazon reviews and meta dump, ``multitask --census`` the census-income
-train and test files.  The flags that shard over devices are refused with
-the ROADMAP item that ports them.
+train and test files.
+
+``ctr`` also runs on a (data, model) mesh of processes, as the JAX CLI
+runs on its devices: ``--mesh-model N`` row-shards the tables over a model
+axis of N (the data axis takes the other ranks), ``--embedding-engine
+psum|dedup|a2a|a2a_pipelined`` picks the sharded lookup (one group table,
+so one a2a exchange a step) and ``--capacity-factor`` the a2a engines'
+capacity (<= 0: the exact mode, nothing dropped).  Several ranks come from
+torchrun (``torchrun --nproc-per-node 4 -m recsys_tpu_torch.cli ctr
+--mesh-model 2 --embedding-engine a2a --device cpu``); without it the
+mesh is one process.  Every rank reads the same data and prints its lines.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -63,6 +73,7 @@ from recsys_tpu_torch.models.match.ncf import NCF
 from recsys_tpu_torch.models.match.sasrec import SASRec
 from recsys_tpu_torch.models.match.two_tower import DSSM, SENetDSSM
 from recsys_tpu_torch.models.match.youtube_dnn import YoutubeDNN
+from recsys_tpu_torch.parallel.mesh import make_mesh
 from recsys_tpu_torch.tools.protocol import (CTR_MODELS, head_aucs, logq_softmax,
                                              multitask_model, ncf_loss, ranked_eval)
 from recsys_tpu_torch.train import losses
@@ -70,7 +81,24 @@ from recsys_tpu_torch.train.loop import Trainer
 from recsys_tpu_torch.train.metrics import hit_rate_ndcg_at_k, recall_at_k
 from recsys_tpu_torch.train.retrieval import BruteForceIndex, topk_scores
 
-DEFAULT_CAPACITY_FACTOR = 2.0  # the JAX CLI's; read by the sharded engines only
+DEFAULT_CAPACITY_FACTOR = 2.0  # the JAX CLI's; read by the a2a engines only
+
+
+def ctr_mesh(args, kw: dict):
+    """The mesh of ``ctr``'s flags (None without them and without a world
+    of several ranks), with the tables' options it sets in ``kw``."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.mesh_model <= 1 and args.embedding_engine == "gather" and world == 1:
+        return None
+    mesh = make_mesh(model=max(args.mesh_model, 1), device=args.device)
+    embed_kw = kw.setdefault("embed_kw", {})
+    embed_kw["mesh"] = mesh  # tables built straight into their row shards
+    if args.embedding_engine != "gather":
+        # one group table: ONE a2a exchange pair a train step
+        embed_kw.update(engine=args.embedding_engine, num_groups=1,
+                        capacity_factor=(args.capacity_factor if args.capacity_factor > 0
+                                         else None))  # <= 0: the exact mode
+    return mesh
 
 
 def run_ctr(args):
@@ -95,8 +123,10 @@ def run_ctr(args):
         if args.model != "dlrm":
             raise SystemExit("--bf16 compute is wired for --model dlrm")
         kw["compute_dtype"] = torch.bfloat16
+    mesh = ctr_mesh(args, kw)
     tr = Trainer(CTR_MODELS[args.model](schema, **kw), learning_rate=args.lr,
-                 embedding_optimizer=args.embedding_optimizer or None, device=args.device)
+                 embedding_optimizer=args.embedding_optimizer or None, device=args.device,
+                 mesh=mesh)
     if stream is not None:
         hist = tr.fit(train, epochs=args.epochs)
         print(f"final train loss: {hist['loss'][-1]:.5f}")
@@ -105,7 +135,10 @@ def run_ctr(args):
                   early_stopping_patience=1)
     auc = tr.evaluate_auc(test)
     print(f"test AUC: {auc:.4f}")
-    return {"loss": hist["loss"], "auc": auc}
+    res = {"loss": hist["loss"], "auc": auc}
+    if "a2a_dropped" in hist:
+        res["a2a_dropped"] = hist["a2a_dropped"]
+    return res
 
 
 def run_match(args):
@@ -283,14 +316,9 @@ def run_seq_retrieval(args):
 
 
 def _refuse(args) -> None:
-    """SystemExit for the models ``multitask`` does not take, and naming the
-    ROADMAP item of the multi-device flags the port does not have yet."""
+    """SystemExit for the models ``multitask`` does not take."""
     if args.task == "multitask" and args.model not in ("esmm", "mmoe", "ple"):
         raise SystemExit(f"multitask takes --model esmm, mmoe or ple, not {args.model!r}")
-    if args.embedding_engine != "gather" or args.mesh_model > 1 or \
-            args.capacity_factor != DEFAULT_CAPACITY_FACTOR:
-        raise SystemExit("the sharded embedding engines, --mesh-model and --capacity-factor "
-                         "are not ported yet (ROADMAP.md Queue 1 item 10)")
 
 
 def main(argv=None):
@@ -321,10 +349,14 @@ def main(argv=None):
                         "update the touched rows only; fused_* run the fused "
                         "embedding-update kernels (exact dense semantics)")
     p.add_argument("--embedding-engine", default="gather",
-                   choices=["gather", "psum", "dedup", "a2a", "a2a_pipelined"])
-    p.add_argument("--mesh-model", type=int, default=1)
+                   choices=["gather", "psum", "dedup", "a2a", "a2a_pipelined"],
+                   help="ctr: the sharded table lookup (a2a = all-to-all id exchange over "
+                        "the model axis)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="ctr: model-axis size for row-sharding the tables (the data axis "
+                        "takes the other ranks)")
     p.add_argument("--capacity-factor", type=float, default=DEFAULT_CAPACITY_FACTOR,
-                   help="a2a engines' capacity (not ported yet)")
+                   help="a2a engines' owner-bucket capacity; <= 0 is the exact mode")
     p.add_argument("--bf16", action="store_true", help="bf16 compute (DLRM)")
     p.add_argument("--retrieval-loss", choices=["softmax", "bce"], default="softmax")
     p.add_argument("--no-logq", dest="logq", action="store_false",

@@ -6,7 +6,11 @@ DIN's also takes its ``batch_stats``) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
-the same way.
+the same way.  A JAX array sharded over a mesh (the JAX package's virtual
+CPU mesh included) becomes the whole numpy array under ``np.asarray``, so
+sharded JAX state converts as unsharded state does;
+``parallel/sharding_rules.py::shard_state`` then cuts the port's state to
+one rank's shards.
 """
 from __future__ import annotations
 

@@ -92,15 +92,20 @@ T* room(std::vector<T>& v, int64_t n) {
 }
 
 // The prep of the n occurrences whose table rows are rows[0 .. n): a row
-// outside [0, vp) returns -1 before anything is written.  A slot's entry
+// outside [0, vp) returns -1 before anything is written, shards that do
+// not divide vp -2.  With shards > 1 the block fences align to the row
+// shards of a model axis: shard s owns rows [s * vs, (s + 1) * vs), vs =
+// vp / shards, in nb_s = ceil(vs / block) blocks, nb = shards * nb_s in
+// all, so that shard s's update reads cptr[s * nb_s .. (s + 1) * nb_s].  A slot's entry
 // of idx is its occurrence i, or src[i] where src is given (and a sentinel
 // slot's that of occurrence 0).  The occurrences are put in stable order
 // by row with a least-significant-digit radix sort of (row << 32 | i)
 // keys, 11 bits of the row a pass (2 passes below 2^22 rows), and the
 // block fences found by walking the sorted rows: no per-id division.
 int prep(const int32_t* rows, int64_t n, const int32_t* src, int32_t vp, int32_t block,
-         int32_t ch, int32_t* ids2d, int32_t* idx, int32_t* cptr) {
-  const int32_t nb = (vp + block - 1) / block;
+         int32_t ch, int32_t shards, int32_t* ids2d, int32_t* idx, int32_t* cptr) {
+  if (shards < 1 || vp % shards) return -2;
+  const int32_t vs = vp / shards, nb_s = (vs + block - 1) / block, nb = shards * nb_s;
   const int64_t nc_max = n / ch + nb;
   constexpr int kBits = 11, kBuckets = 1 << kBits;
   uint64_t* keys = room(scratch.keys, n);
@@ -131,7 +136,10 @@ int prep(const int32_t* rows, int64_t n, const int32_t* src, int32_t vp, int32_t
   int64_t j = 0;
   for (int32_t k = 0; k < nb; ++k) {
     start[k] = j;
-    const int64_t hi = (int64_t)(k + 1) * block;
+    // shard s's blocks fence its rows [s * vs, (s + 1) * vs) every `block`
+    const int32_t s = k / nb_s;
+    const int64_t hi = std::min((int64_t)s * vs + (int64_t)(k - s * nb_s + 1) * block,
+                                (int64_t)(s + 1) * vs);
     while (j < n && (int64_t)(keys[j] >> 32) < hi) ++j;
   }
   cptr[0] = 0;
@@ -260,10 +268,11 @@ void shuffle_indices(int64_t n, uint64_t seed, int64_t* out) {
 // (nc_max, ch) the ids of block k in chunks [cptr[k], cptr[k + 1]) in
 // stable order by row, the rest the sentinel nb * block; idx (nc_max * ch)
 // each slot's position in ids (0 at a sentinel); cptr (nb + 1) with
-// cptr[nb] = nc_max.  Returns 0, or -1 for an id outside [0, vp).
+// cptr[nb] = nc_max; the fences of `shards` row shards (see prep).
+// Returns 0, -1 for an id outside [0, vp), -2 for shards not dividing vp.
 int fused_prep(const int32_t* ids, int64_t n, int32_t vp, int32_t block, int32_t ch,
-               int32_t* ids2d, int32_t* idx, int32_t* cptr) {
-  return prep(ids, n, nullptr, vp, block, ch, ids2d, idx, cptr);
+               int32_t shards, int32_t* ids2d, int32_t* idx, int32_t* cptr) {
+  return prep(ids, n, nullptr, vp, block, ch, shards, ids2d, idx, cptr);
 }
 
 // fused_prep over one table group of a (b, f) batch: its occurrences are
@@ -272,7 +281,7 @@ int fused_prep(const int32_t* ids, int64_t n, int32_t vp, int32_t block, int32_t
 // row r * f + cols[j] of the (b * f, D) tap cotangent.
 int fused_prep_group(const int32_t* sparse, int64_t b, int32_t f, const int32_t* cols,
                      const int32_t* offs, int32_t ncols, int32_t vp, int32_t block, int32_t ch,
-                     int32_t* ids2d, int32_t* src, int32_t* cptr) {
+                     int32_t shards, int32_t* ids2d, int32_t* src, int32_t* cptr) {
   int32_t* rows = room(scratch.rows, b * ncols);
   int32_t* at = room(scratch.at, b * ncols);
   for (int32_t j = 0; j < ncols; ++j)
@@ -280,7 +289,7 @@ int fused_prep_group(const int32_t* sparse, int64_t b, int32_t f, const int32_t*
       at[j * b + r] = (int32_t)(r * f + cols[j]);
       rows[j * b + r] = sparse[r * f + cols[j]] + offs[j];
     }
-  return prep(rows, b * ncols, at, vp, block, ch, ids2d, src, cptr);
+  return prep(rows, b * ncols, at, vp, block, ch, shards, ids2d, src, cptr);
 }
 
 }  // extern "C"

@@ -75,12 +75,13 @@ def library() -> ctypes.CDLL:
     lib.shuffle_indices.restype = None
     lib.shuffle_indices.argtypes = [_I64, ctypes.c_uint64, _I64P]
     lib.fused_prep.restype = ctypes.c_int
-    lib.fused_prep.argtypes = [_I32P, _I64, _I32, _I32, _I32, _I32P, _I32P, _I32P]
+    lib.fused_prep.argtypes = [_I32P, _I64, _I32, _I32, _I32, _I32, _I32P, _I32P, _I32P]
     # fused_prep_group writes into caller-owned buffers, pinned host memory
     # among them: its outputs are plain addresses
     lib.fused_prep_group.restype = ctypes.c_int
     lib.fused_prep_group.argtypes = [_I32P, _I64, _I32, _I32P, _I32P, _I32, _I32, _I32,
-                                     _I32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                                     _I32, _I32, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p]
     return lib
 
 
@@ -200,27 +201,29 @@ def shuffle_indices(n: int, seed: int = 0) -> np.ndarray:
     return out
 
 
-def prep_geometry(n: int, vp: int, block: int, ch: int) -> tuple[int, int]:
+def prep_geometry(n: int, vp: int, block: int, ch: int, shards: int = 1) -> tuple[int, int]:
     """(nc_max, nb): the static chunk count ``n // ch + nb`` of ``n`` ids
-    in chunks of ``ch`` over the ``nb = ceil(vp / block)`` blocks of a
-    table of ``vp`` rows."""
+    in chunks of ``ch`` over the ``nb`` blocks of a table of ``vp`` rows,
+    ``ceil(vp / shards / block)`` in each of its ``shards`` row shards."""
     if min(vp, block, ch) < 1:
         raise ValueError(f"vp={vp}, block={block} and ch={ch} must be positive")
-    nb = -(-vp // block)
+    if shards < 1 or vp % shards:
+        raise ValueError(f"vp={vp} not divisible by shards={shards}")
+    nb = shards * -(-(vp // shards) // block)
     return n // ch + nb, nb
 
 
-def fused_prep(ids: np.ndarray, vp: int, block: int, ch: int):
+def fused_prep(ids: np.ndarray, vp: int, block: int, ch: int, shards: int = 1):
     """The fused update's host prep of one table of ``vp`` rows: (ids2d
     (nc_max, ch), idx (nc_max·ch,), cptr (nb + 1,)), all int32, bit-equal to
-    the JAX ``fused_prep`` with one shard (and to
-    ``train.streaming_embed.host_prep_group``).  Raises on an id outside
-    [0, vp)."""
+    the JAX ``fused_prep`` (and to ``train.streaming_embed.host_prep_group``)
+    with the same ``shards``, whose block fences align to the row shards of
+    a model axis.  Raises on an id outside [0, vp) or ``vp % shards``."""
     ids = np.ascontiguousarray(ids, np.int32)
-    nc, nb = prep_geometry(len(ids), vp, block, ch)
+    nc, nb = prep_geometry(len(ids), vp, block, ch, shards)
     ids2d, idx = np.empty((nc, ch), np.int32), np.empty(nc * ch, np.int32)
     cptr = np.empty(nb + 1, np.int32)
-    if library().fused_prep(ids.ctypes.data_as(_I32P), len(ids), vp, block, ch,
+    if library().fused_prep(ids.ctypes.data_as(_I32P), len(ids), vp, block, ch, shards,
                             ids2d.ctypes.data_as(_I32P), idx.ctypes.data_as(_I32P),
                             cptr.ctypes.data_as(_I32P)):
         raise ValueError(f"ids outside [0, {vp})")
@@ -229,7 +232,7 @@ def fused_prep(ids: np.ndarray, vp: int, block: int, ch: int):
 
 def fused_prep_group(sparse: np.ndarray, cols: np.ndarray, offs: np.ndarray, vp: int,
                      block: int, ch: int, ids2d: np.ndarray, src: np.ndarray,
-                     cptr: np.ndarray) -> None:
+                     cptr: np.ndarray, shards: int = 1) -> None:
     """``fused_prep`` of one table group of a (B, F) int32 batch, into the
     caller's int32 buffers: the group's ids are columns ``cols`` plus
     ``offs``, column after column, and ``src`` holds, where ``fused_prep``'s
@@ -238,7 +241,7 @@ def fused_prep_group(sparse: np.ndarray, cols: np.ndarray, offs: np.ndarray, vp:
     b, f = sparse.shape
     cols = np.ascontiguousarray(cols, np.int32)
     offs = np.ascontiguousarray(offs, np.int32)
-    nc, nb = prep_geometry(b * len(cols), vp, block, ch)
+    nc, nb = prep_geometry(b * len(cols), vp, block, ch, shards)
     if sparse.dtype != np.int32 or not sparse.flags.c_contiguous or \
             len(offs) != len(cols) or (len(cols) and not 0 <= cols.min() <= cols.max() < f):
         raise ValueError("sparse must be C-contiguous int32 (B, F), cols in [0, F), "
@@ -250,6 +253,6 @@ def fused_prep_group(sparse: np.ndarray, cols: np.ndarray, offs: np.ndarray, vp:
                              f"{a.dtype} {a.shape}")
     if library().fused_prep_group(sparse.ctypes.data_as(_I32P), b, f,
                                   cols.ctypes.data_as(_I32P), offs.ctypes.data_as(_I32P),
-                                  len(cols), vp, block, ch, ids2d.ctypes.data,
+                                  len(cols), vp, block, ch, shards, ids2d.ctypes.data,
                                   src.ctypes.data, cptr.ctypes.data):
         raise ValueError(f"group ids outside [0, {vp})")

@@ -51,7 +51,8 @@ SIGNATURES = {
         "embedding_adam_launch": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                                        _F, _F, _F, _F, _P]),
         "embedding_rowwise_adagrad_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                                  _I, _I, _I, _F, _F, _F, _P]),
+                                                  _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                                  _P]),
     },
     "flash_attention_fwd": {
         "flash_attention_fwd_smem_bytes": (ctypes.c_longlong, [_I]),

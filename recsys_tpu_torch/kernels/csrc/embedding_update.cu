@@ -10,8 +10,17 @@
 // rows in host-prep order; ids (nc, ch) int32 vocab ids padded with the
 // sentinel nb*block; cptr (nb+1) int32, block k owns chunks
 // [cptr[k], cptr[k+1]), its ids ascending and then the sentinel, as host
-// prep sorts them.  The table p (V, D) is f32 or bf16; m, v (V, D) and
-// acc (V) are f32.  Every row is updated in place, touched or not.
+// prep sorts them.  Like the TPU kernel these take `streams` such sorted
+// streams one after the other (one a data rank, under the local data
+// contract), block k summing every stream's window in turn, and a model
+// shard's window: the table is rows [row0, row0 + V) of the global one,
+// its ids stay global (less row0 in the kernel, where the TPU wrapper
+// rebases them in a pass of their own) and cptr points at its first block
+// (shard-aligned fences from host prep).  The one-stream walk of a whole
+// table (streams 1, row0 0, every table of a launch) compiles apart
+// (accumulate<false>), without the stream loop or the offset.  The table
+// p (V, D) is f32 or bf16; m, v (V, D) and acc (V) are f32.  Every row is
+// updated in place, touched or not.
 //
 // Bound on the H100: bytes.  One 100k x 16 table with Adam reads and writes
 // p, m and v (38.4 MB) and reads the bf16 cotangent and ids (~2.4 MB at
@@ -81,48 +90,63 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
+// Where a table's chunks lie: `streams` sorted streams of nc chunks each,
+// stream s's chunk pointers at cptr[s * cstride ..], and every id offset by
+// row0 (a model shard's first row: ids are global, the table is the shard).
+struct Chunks {
+  const int* ids;
+  const int* cptr;
+  int nc, streams, cstride, row0;
+};
+
 // Sum the chunks of table block k into the shared tile g[(hi - lo) * D]
 // for the table rows [lo, hi) (a part of the block, or all of it up to
-// V), with all blockDim.x threads.
-template <typename C>
-__device__ void accumulate(float* g, const C* __restrict__ cot,
-                           const int* __restrict__ ids,
-                           const int* __restrict__ cptr, int k, int lo, int hi, int D,
-                           int ch, int nc) {
+// V), with all blockDim.x threads: every stream's window of the block,
+// one after the other.  kMulti = false compiles the one-stream walk of a
+// whole table (streams 1, row0 0) with neither loop nor offset.
+template <bool kMulti, typename C>
+__device__ void accumulate(float* g, const C* __restrict__ cot, const Chunks& q, int k,
+                           int lo, int hi, int D, int ch) {
   const int T = blockDim.x;
   const int rows = (hi - lo) * D;
   for (int i = threadIdx.x; i < rows / 4; i += T)
     reinterpret_cast<float4*>(g)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = rows / 4 * 4 + threadIdx.x; i < rows; i += T) g[i] = 0.f;
   __syncthreads();
-  const int c0 = min(cptr[k], nc), c1 = max(c0, min(cptr[k + 1], nc));
-  const int n = (c1 - c0) * ch * D;  // this block's cotangent elements
-  const int* bids = ids + static_cast<size_t>(c0) * ch;
-  const C* bcot = cot + static_cast<size_t>(c0) * ch * D;
-  // The ids ascend through a block's chunks, and the sentinel that pads
-  // them lies above every vocab id; a thread's slots ascend too, so its
-  // first id past hi ends its walk.  The last block thus reads a few
-  // sentinels per thread of the static padding chunks, not all of them.
-  // A batch's ids and cotangent values load together (a value's address
-  // does not depend on its id), and only then are they added.
-  constexpr int kBatch = 4;
-  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * T) {
-    int id[kBatch];
-    float c[kBatch];
+  const int streams = kMulti ? q.streams : 1, row0 = kMulti ? q.row0 : 0;
+  for (int s = 0; s < streams; ++s) {
+    const int* cp = q.cptr + static_cast<size_t>(s) * q.cstride;
+    const int c0 = min(cp[k], q.nc), c1 = max(c0, min(cp[k + 1], q.nc));
+    const int n = (c1 - c0) * ch * D;  // this block's cotangent elements
+    const size_t first = static_cast<size_t>(s) * q.nc + c0;
+    const int* bids = q.ids + first * ch;
+    const C* bcot = cot + first * ch * D;
+    // The ids ascend through a block's chunks, and the sentinel that pads
+    // them lies above every vocab id; a thread's slots ascend too, so its
+    // first id past hi ends its walk of this stream.  The last block thus
+    // reads a few sentinels per thread of the static padding chunks, not
+    // all of them.  A batch's ids and cotangent values load together (a
+    // value's address does not depend on its id), and only then are they
+    // added.
+    constexpr int kBatch = 4;
+    for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * T) {
+      int id[kBatch];
+      float c[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * T;
-      id[u] = e < n ? bids[e / D] : INT_MAX;
-      c[u] = e < n ? load_f(bcot, e) : 0.f;
-    }
-    bool past = false;
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * T;
+        id[u] = e < n ? bids[e / D] - row0 : INT_MAX;
+        c[u] = e < n ? load_f(bcot, e) : 0.f;
+      }
+      bool past = false;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * T, local = id[u] - lo;
-      past = past || id[u] >= hi;
-      if (!past && local >= 0) atomicAdd(&g[local * D + e % D], c[u]);
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * T, local = id[u] - lo;
+        past = past || id[u] >= hi;
+        if (!past && local >= 0) atomicAdd(&g[local * D + e % D], c[u]);
+      }
+      if (past) break;
     }
-    if (past) break;
   }
   __syncthreads();
 }
@@ -173,9 +197,8 @@ struct AdamTable {
   float* m;
   float* v;
   const void* cot;
-  const int* ids;
-  const int* cptr;
-  int V, block, nc, parts, part_rows, first, vec;
+  Chunks q;
+  int V, block, parts, part_rows, first, vec;
 };
 struct AdamPass {
   AdamTable t[kPassTables];
@@ -188,7 +211,7 @@ struct AdamPass {
 // latency hides behind it; then it sums the part's gradient into the tile
 // and updates the loaded values.  Any D or alignment other than vec takes
 // single values after the walk.
-template <typename P, typename C>
+template <typename P, typename C, bool kMulti>
 __global__ void __launch_bounds__(kAdamThreads)
     adam_kernel(const __grid_constant__ AdamPass a, int D, int ch, AdamHyper h) {
   extern __shared__ float4 g4[];
@@ -219,7 +242,7 @@ __global__ void __launch_bounds__(kAdamThreads)
         load4(v, e0 + 4 * q, vv[i]);
       }
     }
-    accumulate(g, cot, tb.ids, tb.cptr, k, r0, r1, D, ch, tb.nc);
+    accumulate<kMulti>(g, cot, tb.q, k, r0, r1, D, ch);
     const float4* const gt = g4;
     auto update = [&](int q, float (&x)[4], float (&mx)[4], float (&vx)[4]) {
       const float4 gq = gt[q];
@@ -243,7 +266,7 @@ __global__ void __launch_bounds__(kAdamThreads)
       update(q, x, mx, vx);
     }
   } else {
-    accumulate(g, cot, tb.ids, tb.cptr, k, r0, r1, D, ch, tb.nc);
+    accumulate<kMulti>(g, cot, tb.q, k, r0, r1, D, ch);
     for (int q = threadIdx.x; q < n; q += kAdamThreads) {
       const size_t e = e0 + q;
       float pv = load_f(p, e), mv = m[e], vw = v[e];
@@ -268,12 +291,11 @@ __device__ __forceinline__ float adagrad_one(float p, float g, float rate, float
 // L lanes a row, 4 elements a lane (D = 4L); kGroup rows a thread in
 // flight.  Shuffles run on every lane: rows past the block only mask their
 // loads and stores.
-template <typename P, typename C, int L>
+template <typename P, typename C, int L, bool kMulti>
 __global__ void __launch_bounds__(kAdagradThreads)
     adagrad_lanes_kernel(P* __restrict__ p, float* __restrict__ acc,
-                         const C* __restrict__ cot, const int* __restrict__ ids,
-                         const int* __restrict__ cptr, int V, int block, int ch,
-                         int nc, float lr, float eps, float wd) {
+                         const C* __restrict__ cot, const Chunks chunks, int V, int block,
+                         int ch, float lr, float eps, float wd) {
   constexpr int D = 4 * L, kRowsAPass = kAdagradThreads / L, kGroup = 4;
   extern __shared__ float4 g4[];
   const int k = blockIdx.x;
@@ -292,7 +314,7 @@ __global__ void __launch_bounds__(kAdagradThreads)
     }
   };
   load_group(0);
-  accumulate(reinterpret_cast<float*>(g4), cot, ids, cptr, k, r0, r0 + rows, D, ch, nc);
+  accumulate<kMulti>(reinterpret_cast<float*>(g4), cot, chunks, k, r0, r0 + rows, D, ch);
   const float inv_d = 1.f / D;
   for (int base = 0;;) {
 #pragma unroll
@@ -320,18 +342,17 @@ __global__ void __launch_bounds__(kAdagradThreads)
 }
 
 // Any D and alignment: a warp a row, lanes over its elements.
-template <typename P, typename C>
+template <typename P, typename C, bool kMulti>
 __global__ void __launch_bounds__(kAdagradThreads)
     adagrad_warp_kernel(P* __restrict__ p, float* __restrict__ acc,
-                        const C* __restrict__ cot, const int* __restrict__ ids,
-                        const int* __restrict__ cptr, int V, int D, int block,
-                        int ch, int nc, float lr, float eps, float wd) {
+                        const C* __restrict__ cot, const Chunks chunks, int V, int D,
+                        int block, int ch, float lr, float eps, float wd) {
   extern __shared__ float4 g4[];
   float* const g = reinterpret_cast<float*>(g4);
   const int k = blockIdx.x;
   const int r0 = k * block;
   const int rows = min(V, r0 + block) - r0;
-  accumulate(g, cot, ids, cptr, k, r0, r0 + rows, D, ch, nc);
+  accumulate<kMulti>(g, cot, chunks, k, r0, r0 + rows, D, ch);
   const int lane = threadIdx.x % 32;
   const float inv_d = 1.f / D;
   for (int r = threadIdx.x / 32; r < rows; r += kAdagradThreads / 32) {
@@ -356,11 +377,18 @@ cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 // Shapes the kernels take: a (block, D) f32 tile in shared memory, and
 // every block's cotangent elements and every table element indexable in int.
-bool bad_args(int V, int D, int block, int ch, int nc) {
-  return V < 1 || D < 1 || block < 1 || ch < 1 || nc < 1 ||
+bool bad_args(int V, int D, int block, int ch, const Chunks& q) {
+  return V < 1 || D < 1 || block < 1 || ch < 1 || q.nc < 1 || q.streams < 1 ||
+         q.cstride < (V + block - 1) / block + 1 || q.row0 < 0 ||
          static_cast<long long>(block) * D * 4 > 227 * 1024 ||
-         static_cast<long long>(nc) * ch * D >= (1LL << 31) ||
+         static_cast<long long>(q.streams) * q.nc * ch * D >= (1LL << 31) ||
          static_cast<long long>(V + block) * D >= (1LL << 31);
+}
+
+Chunks chunks_of(const void* ids, const void* cptr, int nc, int streams, int cstride,
+                 int row0) {
+  return Chunks{static_cast<const int*>(ids), static_cast<const int*>(cptr), nc, streams,
+                cstride, row0};
 }
 
 // Above 48 KB a block's dynamic shared memory must be opted in to.
@@ -373,7 +401,7 @@ void allow_smem(K kernel, size_t smem) {
 
 // An Adam pass over `count` tables of one D, one ch and one pair of
 // types: ptrs holds each table's p, m, v, cot, ids and cptr, ints its V,
-// block and nc.
+// block, nc, streams, cstride and row0.
 template <typename P, typename C>
 int launch_adam(const uint64_t* ptrs, const int* ints, int count, int D, int ch,
                 const AdamHyper& h, cudaStream_t s) {
@@ -382,18 +410,21 @@ int launch_adam(const uint64_t* ptrs, const int* ints, int count, int D, int ch,
   a.count = count;
   long long blocks = 0;
   size_t smem = 16;
+  bool multi = false;
   for (int t = 0; t < count; ++t) {
     const uint64_t* q = ptrs + 6 * t;
-    const int V = ints[3 * t], block = ints[3 * t + 1], nc = ints[3 * t + 2];
-    if (bad_args(V, D, block, ch, nc)) return cudaErrorInvalidValue;
+    const int* n = ints + 6 * t;
+    const int V = n[0], block = n[1];
     AdamTable& tb = a.t[t];
+    tb.q = chunks_of(reinterpret_cast<const void*>(q[4]), reinterpret_cast<const void*>(q[5]),
+                     n[2], n[3], n[4], n[5]);
+    if (bad_args(V, D, block, ch, tb.q)) return cudaErrorInvalidValue;
+    multi = multi || tb.q.streams > 1 || tb.q.row0 > 0;
     tb.p = reinterpret_cast<void*>(q[0]);
     tb.m = reinterpret_cast<float*>(q[1]);
     tb.v = reinterpret_cast<float*>(q[2]);
     tb.cot = reinterpret_cast<const void*>(q[3]);
-    tb.ids = reinterpret_cast<const int*>(q[4]);
-    tb.cptr = reinterpret_cast<const int*>(q[5]);
-    tb.V = V, tb.block = block, tb.nc = nc;
+    tb.V = V, tb.block = block;
     tb.parts = static_cast<int>((static_cast<long long>(block) * D + kAdamValues - 1) /
                                 kAdamValues);
     tb.part_rows = (block + tb.parts - 1) / tb.parts;
@@ -404,8 +435,14 @@ int launch_adam(const uint64_t* ptrs, const int* ints, int count, int D, int ch,
     smem = tile > smem ? tile : smem;
   }
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  allow_smem(adam_kernel<P, C>, smem);
-  adam_kernel<P, C><<<static_cast<unsigned>(blocks), kAdamThreads, smem, s>>>(a, D, ch, h);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (multi) {
+    allow_smem(adam_kernel<P, C, true>, smem);
+    adam_kernel<P, C, true><<<grid, kAdamThreads, smem, s>>>(a, D, ch, h);
+  } else {
+    allow_smem(adam_kernel<P, C, false>, smem);
+    adam_kernel<P, C, false><<<grid, kAdamThreads, smem, s>>>(a, D, ch, h);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,21 +456,19 @@ int launch_adam_types(const uint64_t* ptrs, const int* ints, int count, int D, i
   return launch_adam<float, float>(ptrs, ints, count, D, ch, h, s);
 }
 
-template <typename P, typename C, int L>
-void run_lanes(void* p, void* acc, const void* cot, const void* ids, const void* cptr,
-               int V, int block, int ch, int nc, float lr, float eps, float wd,
-               int nb, size_t smem, cudaStream_t s) {
-  allow_smem(adagrad_lanes_kernel<P, C, L>, smem);
-  adagrad_lanes_kernel<P, C, L><<<nb, kAdagradThreads, smem, s>>>(
-      static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot),
-      static_cast<const int*>(ids), static_cast<const int*>(cptr), V, block, ch, nc,
-      lr, eps, wd);
+template <typename P, typename C, int L, bool kMulti>
+void run_lanes(void* p, void* acc, const void* cot, const Chunks& q, int V, int block,
+               int ch, float lr, float eps, float wd, int nb, size_t smem,
+               cudaStream_t s) {
+  allow_smem(adagrad_lanes_kernel<P, C, L, kMulti>, smem);
+  adagrad_lanes_kernel<P, C, L, kMulti><<<nb, kAdagradThreads, smem, s>>>(
+      static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot), q, V,
+      block, ch, lr, eps, wd);
 }
 
-template <typename P, typename C>
-void launch_adagrad(void* p, void* acc, const void* cot, const void* ids,
-                    const void* cptr, int V, int D, int block, int ch, int nc,
-                    float lr, float eps, float wd, void* stream) {
+template <typename P, typename C, bool kMulti>
+void launch_adagrad(void* p, void* acc, const void* cot, const Chunks& q, int V, int D,
+                    int block, int ch, float lr, float eps, float wd, void* stream) {
   const int nb = (V + block - 1) / block;
   const size_t smem = static_cast<size_t>(block) * D * sizeof(float);
   cudaStream_t s = as_stream(stream);
@@ -441,29 +476,42 @@ void launch_adagrad(void* p, void* acc, const void* cot, const void* ids,
   // and the table is aligned to a lane's 4 elements
   const bool aligned = reinterpret_cast<uintptr_t>(p) % (4 * sizeof(P)) == 0;
   switch (aligned && D % 4 == 0 ? D / 4 : 0) {
-    case 1: run_lanes<P, C, 1>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
-    case 2: run_lanes<P, C, 2>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
-    case 4: run_lanes<P, C, 4>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
-    case 8: run_lanes<P, C, 8>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
-    case 16: run_lanes<P, C, 16>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
-    case 32: run_lanes<P, C, 32>(p, acc, cot, ids, cptr, V, block, ch, nc, lr, eps, wd, nb, smem, s); return;
+    case 1: run_lanes<P, C, 1, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
+    case 2: run_lanes<P, C, 2, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
+    case 4: run_lanes<P, C, 4, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
+    case 8: run_lanes<P, C, 8, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
+    case 16: run_lanes<P, C, 16, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
+    case 32: run_lanes<P, C, 32, kMulti>(p, acc, cot, q, V, block, ch, lr, eps, wd, nb, smem, s); return;
     default:
-      allow_smem(adagrad_warp_kernel<P, C>, smem);
-      adagrad_warp_kernel<P, C><<<nb, kAdagradThreads, smem, s>>>(
-          static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot),
-          static_cast<const int*>(ids), static_cast<const int*>(cptr), V, D, block, ch, nc,
-          lr, eps, wd);
+      allow_smem(adagrad_warp_kernel<P, C, kMulti>, smem);
+      adagrad_warp_kernel<P, C, kMulti><<<nb, kAdagradThreads, smem, s>>>(
+          static_cast<P*>(p), static_cast<float*>(acc), static_cast<const C*>(cot), q, V, D,
+          block, ch, lr, eps, wd);
   }
+}
+
+// The multi-stream (or shard-window) walk, or the one-stream one.
+template <typename P, typename C>
+void adagrad_form(bool multi, void* p, void* acc, const void* cot, const Chunks& q, int V,
+                  int D, int block, int ch, float lr, float eps, float wd, void* stream) {
+  if (multi)
+    launch_adagrad<P, C, true>(p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
+  else
+    launch_adagrad<P, C, false>(p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
 }
 
 }  // namespace
 
 // Adam over `count` tables (1 <= count <= 32) of one D, one ch and one
 // pair of types, in one launch.  Table t: p (V, D) f32 or bf16 (p_bf16), m
-// and v (V, D) f32, updated in place; cot (nc*ch, D) f32 or bf16
-// (cot_bf16); ids (nc, ch) and cptr (nb+1) int32 with nb = ceil(V / block).
-// ptrs (6 * count) holds each table's p, m, v, cot, ids and cptr, ints (3 *
-// count) its V, block and nc.  omb1 = 1 - b1, omb2 = 1 - b2; c1 and c2 are
+// and v (V, D) f32, updated in place; cot (streams*nc*ch, D) f32 or bf16
+// (cot_bf16), `streams` sorted streams of nc chunks one after the other;
+// ids (streams*nc, ch) int32; stream s's chunk pointers at cptr[s * cstride
+// .. s * cstride + nb] with nb = ceil(V / block); every id less row0 is
+// the table row (row0 > 0 for a model shard whose rows start there, with
+// cptr pointing at the shard's first block).  ptrs (6 * count) holds each
+// table's p, m, v, cot, ids and cptr, ints (6 * count) its V, block, nc,
+// streams, cstride and row0.  omb1 = 1 - b1, omb2 = 1 - b2; c1 and c2 are
 // the bias corrections.  Launches on `stream`, returns cudaGetLastError()
 // (cudaErrorInvalidValue for a count or shape out of range).
 extern "C" int embedding_adam_launch(const uint64_t* ptrs, const int* ints, int count,
@@ -477,16 +525,18 @@ extern "C" int embedding_adam_launch(const uint64_t* ptrs, const int* ints, int 
 // p as above, acc (V) f32, updated in place; the other inputs as above.
 extern "C" int embedding_rowwise_adagrad_launch(
     void* p, void* acc, const void* cot, const void* ids, const void* cptr,
-    int V, int D, int block, int ch, int nc, int p_bf16, int cot_bf16, float lr,
-    float eps, float wd, void* stream) {
-  if (bad_args(V, D, block, ch, nc)) return cudaErrorInvalidValue;
+    int V, int D, int block, int ch, int nc, int streams, int cstride, int row0,
+    int p_bf16, int cot_bf16, float lr, float eps, float wd, void* stream) {
+  const Chunks q = chunks_of(ids, cptr, nc, streams, cstride, row0);
+  if (bad_args(V, D, block, ch, q)) return cudaErrorInvalidValue;
+  const bool multi = streams > 1 || row0 > 0;
   if (p_bf16 && cot_bf16)
-    launch_adagrad<__nv_bfloat16, __nv_bfloat16>(p, acc, cot, ids, cptr, V, D, block, ch, nc, lr, eps, wd, stream);
+    adagrad_form<__nv_bfloat16, __nv_bfloat16>(multi, p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
   else if (p_bf16)
-    launch_adagrad<__nv_bfloat16, float>(p, acc, cot, ids, cptr, V, D, block, ch, nc, lr, eps, wd, stream);
+    adagrad_form<__nv_bfloat16, float>(multi, p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
   else if (cot_bf16)
-    launch_adagrad<float, __nv_bfloat16>(p, acc, cot, ids, cptr, V, D, block, ch, nc, lr, eps, wd, stream);
+    adagrad_form<float, __nv_bfloat16>(multi, p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
   else
-    launch_adagrad<float, float>(p, acc, cot, ids, cptr, V, D, block, ch, nc, lr, eps, wd, stream);
+    adagrad_form<float, float>(multi, p, acc, cot, q, V, D, block, ch, lr, eps, wd, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -324,7 +324,8 @@ def mlp_chain_clusters(dims: Sequence[int], backward: bool = False) -> tuple[int
     return c.value, n
 
 
-def _check_embedding(name, p, state, cot_sorted, ids2d, cptr, block):
+def _check_embedding(name, p, state, cot_sorted, ids2d, cptr, block, streams=1,
+                     shard_index=0):
     """Shapes and types the update kernels take (and the plain versions
     assume)."""
     if p.dim() != 2 or p.dtype not in (torch.float32, torch.bfloat16):
@@ -340,35 +341,41 @@ def _check_embedding(name, p, state, cot_sorted, ids2d, cptr, block):
             cot_sorted.shape[0] < ids2d.numel() or \
             cot_sorted.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: cot_sorted must be f32 or bf16 (>= nc*ch, {d})")
-    if block < 1 or cptr.shape != (emb_ref.num_blocks(vp, block) + 1,):
-        raise ValueError(f"{name}: cptr must hold nb + 1 = "
-                         f"{emb_ref.num_blocks(vp, block) + 1} entries for block {block}")
+    if streams < 1 or ids2d.shape[0] % streams or cptr.dim() != 1 or \
+            cptr.shape[0] % streams or shard_index < 0:
+        raise ValueError(f"{name}: ids2d and cptr must split into {streams} streams, "
+                         f"shard_index {shard_index} >= 0")
+    nb = emb_ref.num_blocks(vp, block)
+    if block < 1 or cptr.shape[0] // streams < (shard_index + 1) * nb + 1:
+        raise ValueError(f"{name}: cptr must hold nb + 1 = {nb + 1} entries a stream for "
+                         f"block {block} (past shard {shard_index}'s window)")
     if block * d * 4 > 227 * 1024:
         raise ValueError(f"{name}: a ({block}, {d}) f32 gradient tile exceeds shared memory")
 
 
-def _embedding_args(p, cot_sorted, ids2d, block, mm_bf16):
-    """The common launch arguments; the cotangent is rounded to bf16 here
-    when ``mm_bf16``, as the TPU kernel's wrapper does."""
-    if mm_bf16:
-        cot_sorted = cot_sorted.bfloat16()
-    nc, ch = ids2d.shape
-    return cot_sorted, [cot_sorted.data_ptr(), ids2d.data_ptr()], [
-        p.shape[0], p.shape[1], block, ch, nc, int(p.dtype == torch.bfloat16),
-        int(cot_sorted.dtype == torch.bfloat16)]
+def _chunk_ints(p, ids2d, cptr, block, streams, shard_index):
+    """(cptr address of the shard's first block, the kernel's nc, streams,
+    cstride and row0) of one table."""
+    nb = emb_ref.num_blocks(p.shape[0], block)
+    return (cptr.data_ptr() + 4 * shard_index * nb,
+            [ids2d.shape[0] // streams, streams, cptr.shape[0] // streams,
+             shard_index * p.shape[0]])
 
 
 def fused_embedding_adam(p, m, v, cot_sorted, ids2d, cptr, step: int, *,
                          block: int, lr: float, b1: float = 0.9, b2: float = 0.999,
-                         eps: float = 1e-8, wd: float = 0.0, mm_bf16: bool = True) -> None:
+                         eps: float = 1e-8, wd: float = 0.0, mm_bf16: bool = True,
+                         streams: int = 1, shard_index: int = 0) -> None:
     """Fused table backward + dense Adam on the logical table ``p`` (V, D)
     f32 or bf16 and its f32 moments, IN PLACE; see
-    ``kernels/embedding_update.py`` for the inputs and the math.  ``step``
-    is 1-based; the bias corrections are computed here in f32.  The pass
-    of one table (``fused_embedding_adam_pass``): one launch."""
+    ``kernels/embedding_update.py`` for the inputs, their ``streams`` and
+    ``shard_index`` forms and the math.  ``step`` is 1-based; the bias
+    corrections are computed here in f32.  The pass of one table
+    (``fused_embedding_adam_pass``): one launch."""
     return fused_embedding_adam_pass([p], [m], [v], [cot_sorted], [ids2d], [cptr], step,
                                      blocks=[block], lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
-                                     mm_bf16=mm_bf16)
+                                     mm_bf16=mm_bf16, streams=streams,
+                                     shard_indices=[shard_index])
 
 
 EMBEDDING_ADAM_TABLES = 32  # tables a launch of fused Adam takes (csrc/embedding_update.cu)
@@ -377,23 +384,29 @@ EMBEDDING_ADAM_TABLES = 32  # tables a launch of fused Adam takes (csrc/embeddin
 def fused_embedding_adam_pass(ps, ms, vs, cots, ids2ds, cptrs, step: int, *, blocks,
                               lr: float, b1: float = 0.9, b2: float = 0.999,
                               eps: float = 1e-8, wd: float = 0.0,
-                              mm_bf16: bool = True) -> None:
+                              mm_bf16: bool = True, streams: int = 1,
+                              shard_indices=None) -> None:
     """``fused_embedding_adam`` over a list of tables in place, table t with
-    its own (p, m, v, cot, ids2d, cptr) and block ``blocks[t]``.  On the
-    card one launch takes up to ``EMBEDDING_ADAM_TABLES`` tables of one D,
-    one chunk length and one pair of types (a step's group tables); a table
-    of no rows is skipped.  On the CPU the plain step runs table by table."""
-    tables = list(zip(ps, ms, vs, cots, ids2ds, cptrs, blocks, strict=True))
-    for p, m, v, cot, ids2d, cptr, block in tables:
+    its own (p, m, v, cot, ids2d, cptr), block ``blocks[t]`` and model-shard
+    index ``shard_indices[t]`` (default 0), all of ``streams`` streams.  On
+    the card one launch takes up to ``EMBEDDING_ADAM_TABLES`` tables of one
+    D, one chunk length and one pair of types (a step's group tables); a
+    table of no rows is skipped.  On the CPU the plain step runs table by
+    table."""
+    if shard_indices is None:
+        shard_indices = [0] * len(ps)
+    tables = list(zip(ps, ms, vs, cots, ids2ds, cptrs, blocks, shard_indices, strict=True))
+    for p, m, v, cot, ids2d, cptr, block, si in tables:
         _check_embedding("fused_embedding_adam", p, [(m, tuple(p.shape)), (v, tuple(p.shape))],
-                         cot, ids2d, cptr, block)
+                         cot, ids2d, cptr, block, streams, si)
     if not tables:
         return None
     device = tables[0][0].device
     if device.type == "cpu":
-        for p, m, v, cot, ids2d, cptr, block in tables:
+        for p, m, v, cot, ids2d, cptr, block, si in tables:
             emb_ref.fused_adam(p, m, v, cot, ids2d, cptr, step, block=block, lr=lr, b1=b1,
-                               b2=b2, eps=eps, wd=wd, mm_bf16=mm_bf16)
+                               b2=b2, eps=eps, wd=wd, mm_bf16=mm_bf16, streams=streams,
+                               shard_index=si)
         return None
     if device.type != "cuda":
         raise ValueError(f"fused_embedding_adam: no kernel for device {device}")
@@ -403,7 +416,7 @@ def fused_embedding_adam_pass(ps, ms, vs, cots, ids2ds, cptrs, step: int, *, blo
     if mm_bf16:  # the cotangent rounded to bf16, as the TPU kernel's wrapper does
         tables = [(*tab[:3], tab[3].bfloat16(), *tab[4:]) for tab in tables]
     kinds = {(p.shape[1], ids2d.shape[1], p.dtype, cot.dtype)
-             for p, _, _, cot, ids2d, _, _ in tables}
+             for p, _, _, cot, ids2d, *_ in tables}
     if len(kinds) > 1:
         raise ValueError(f"fused_embedding_adam: one launch takes one D, chunk length and "
                          f"pair of types, got {sorted(map(str, kinds))}")
@@ -411,15 +424,18 @@ def fused_embedding_adam_pass(ps, ms, vs, cots, ids2ds, cptrs, step: int, *, blo
     lib = build.libraries()["embedding_update"]
     for at in range(0, len(tables), EMBEDDING_ADAM_TABLES):
         part = tables[at:at + EMBEDDING_ADAM_TABLES]
-        ptrs = (ctypes.c_uint64 * (6 * len(part)))(
-            *(t.data_ptr() for tab in part for t in tab[:6]))
-        ints = (ctypes.c_int * (3 * len(part)))(
-            *(x for p, _, _, _, ids2d, _, block in part
-              for x in (p.shape[0], block, ids2d.shape[0])))
+        addrs, ints = [], []
+        for p, m, v, cot, ids2d, cptr, block, si in part:
+            cp, chunk_ints = _chunk_ints(p, ids2d, cptr, block, streams, si)
+            addrs += [p.data_ptr(), m.data_ptr(), v.data_ptr(), cot.data_ptr(),
+                      ids2d.data_ptr(), cp]
+            ints += [p.shape[0], block, *chunk_ints]
+        ptrs = (ctypes.c_uint64 * len(addrs))(*addrs)
+        c_ints = (ctypes.c_int * len(ints))(*ints)
         p0, cot0, ids0 = part[0][0], part[0][3], part[0][4]
         with torch.cuda.device(device):
             rc = lib.embedding_adam_launch(
-                ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+                ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(c_ints, ctypes.c_void_p),
                 len(part), p0.shape[1], ids0.shape[1], int(p0.dtype == torch.bfloat16),
                 int(cot0.dtype == torch.bfloat16), lr, b1, b2, 1.0 - b1, 1.0 - b2, c1, c2,
                 eps, wd, _stream(p0))
@@ -430,24 +446,30 @@ def fused_embedding_adam_pass(ps, ms, vs, cots, ids2ds, cptrs, step: int, *, blo
 
 def fused_embedding_rowwise_adagrad(p, acc, cot_sorted, ids2d, cptr, *, block: int,
                                     lr: float, eps: float = 1e-8, wd: float = 0.0,
-                                    mm_bf16: bool = True) -> None:
+                                    mm_bf16: bool = True, streams: int = 1,
+                                    shard_index: int = 0) -> None:
     """Fused table backward + rowwise AdaGrad on ``p`` (V, D) and its f32
     per-row accumulator ``acc`` (V,), IN PLACE."""
     _check_embedding("fused_embedding_rowwise_adagrad", p, [(acc, (p.shape[0],))],
-                     cot_sorted, ids2d, cptr, block)
+                     cot_sorted, ids2d, cptr, block, streams, shard_index)
     if p.device.type == "cpu":
         return emb_ref.fused_rowwise_adagrad(p, acc, cot_sorted, ids2d, cptr, block=block,
-                                             lr=lr, eps=eps, wd=wd, mm_bf16=mm_bf16)
+                                             lr=lr, eps=eps, wd=wd, mm_bf16=mm_bf16,
+                                             streams=streams, shard_index=shard_index)
     if p.device.type != "cuda":
         raise ValueError(f"fused_embedding_rowwise_adagrad: no kernel for device {p.device}")
     _check_cuda("fused_embedding_rowwise_adagrad", [p, acc, cot_sorted, ids2d, cptr],
                 p.device)
-    cot, ptrs, ints = _embedding_args(p, cot_sorted, ids2d, block, mm_bf16)
+    if mm_bf16:  # the cotangent rounded to bf16, as the TPU kernel's wrapper does
+        cot_sorted = cot_sorted.bfloat16()
+    cp, chunk_ints = _chunk_ints(p, ids2d, cptr, block, streams, shard_index)
     lib = build.libraries()["embedding_update"]
     with torch.cuda.device(p.device):
         rc = lib.embedding_rowwise_adagrad_launch(
-            p.data_ptr(), acc.data_ptr(), *ptrs, cptr.data_ptr(), *ints, lr, eps, wd,
-            _stream(p))
+            p.data_ptr(), acc.data_ptr(), cot_sorted.data_ptr(), ids2d.data_ptr(), cp,
+            p.shape[0], p.shape[1], block, ids2d.shape[1], *chunk_ints,
+            int(p.dtype == torch.bfloat16), int(cot_sorted.dtype == torch.bfloat16), lr,
+            eps, wd, _stream(p))
     build.check(rc, "fused_embedding_rowwise_adagrad")
     LAUNCHES["embedding_rowwise_adagrad"] += 1
 

@@ -22,6 +22,17 @@ that is with one vocab row per table row (pack 1):
   decay.  ``p`` may be f32 or bf16; the math is f32 and the optimizer
   state is always f32.
 
+Both also take the TPU kernels' multi-stream and model-shard forms:
+
+- ``streams`` > 1: ``cot_sorted``, ``ids2d`` and ``cptr`` hold ``streams``
+  independently sorted streams one after the other (one a data rank under
+  the local data contract), each of ``nc_s = nc / streams`` chunks and its
+  own ``cptr`` segment; block k sums every stream's window in turn.
+- ``shard_index`` s: the table ``p`` is the model shard of rows
+  ``[s·V, (s+1)·V)`` of a table prepped with shard-aligned fences
+  (``host_prep_group(shards=)``): its ids stay global, and its blocks'
+  pointers are entries ``[s·nb, s·nb + nb]`` of each stream's segment.
+
 The tables and the optimizer state are updated IN PLACE (the TPU kernel
 aliases them to its outputs); nothing is returned.
 """
@@ -45,15 +56,19 @@ def adam_corrections(step: int, b1: float, b2: float) -> tuple[float, float]:
 
 
 def block_gradient(vp: int, cot_sorted: torch.Tensor, ids2d: torch.Tensor,
-                   cptr: torch.Tensor, block: int, mm_bf16: bool) -> torch.Tensor:
+                   cptr: torch.Tensor, block: int, mm_bf16: bool, streams: int = 1,
+                   shard_index: int = 0) -> torch.Tensor:
     """(vp, D) f32 gradient summed from the sorted cotangent chunks."""
     nc, ch = ids2d.shape
     d = cot_sorted.shape[1]
-    ids = ids2d.reshape(-1).long()
-    # the block whose chunk window holds each occurrence
-    chunk = torch.arange(nc, device=ids.device).repeat_interleave(ch)
-    owner = torch.searchsorted(cptr.long(), chunk, right=True) - 1
-    valid = (ids // block == owner) & (ids < vp)
+    nb = num_blocks(vp, block)
+    ids = ids2d.reshape(-1).long() - shard_index * vp
+    # the block whose chunk window (in its stream) holds each occurrence
+    win = cptr.long().view(streams, -1)[:, shard_index * nb:shard_index * nb + nb + 1]
+    chunk = torch.arange(nc // streams, device=ids.device).expand(streams, -1)
+    owner = torch.searchsorted(win.contiguous(), chunk.contiguous(), right=True) - 1
+    owner = owner.reshape(-1).repeat_interleave(ch)
+    valid = (ids // block == owner) & (ids >= 0) & (ids < vp)
     rows = torch.where(valid, ids, vp)  # sentinels land in the dropped row vp
     cot = cot_sorted[: nc * ch]
     if mm_bf16:
@@ -64,10 +79,12 @@ def block_gradient(vp: int, cot_sorted: torch.Tensor, ids2d: torch.Tensor,
 
 def fused_adam(p, m, v, cot_sorted, ids2d, cptr, step: int, *, block: int,
                lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-               wd: float = 0.0, mm_bf16: bool = True) -> None:
+               wd: float = 0.0, mm_bf16: bool = True, streams: int = 1,
+               shard_index: int = 0) -> None:
     """One dense Adam step (decoupled weight decay ``wd``) on the table
     ``p`` (V, D) and its moments ``m``, ``v`` (V, D) f32, in place."""
-    g = block_gradient(p.shape[0], cot_sorted, ids2d, cptr, block, mm_bf16)
+    g = block_gradient(p.shape[0], cot_sorted, ids2d, cptr, block, mm_bf16, streams,
+                       shard_index)
     c1, c2 = adam_corrections(step, b1, b2)
     p_cur = p.float()
     m_new = b1 * m + (1.0 - b1) * g
@@ -82,11 +99,13 @@ def fused_adam(p, m, v, cot_sorted, ids2d, cptr, step: int, *, block: int,
 
 def fused_rowwise_adagrad(p, acc, cot_sorted, ids2d, cptr, *, block: int,
                           lr: float, eps: float = 1e-8, wd: float = 0.0,
-                          mm_bf16: bool = True) -> None:
+                          mm_bf16: bool = True, streams: int = 1,
+                          shard_index: int = 0) -> None:
     """One rowwise AdaGrad step on ``p`` (V, D) with one f32 accumulator
     per row, ``acc`` (V,): ``acc += mean_d(g²)``,
     ``p -= lr·g/(sqrt(acc)+eps) + lr·wd·p``, in place."""
-    g = block_gradient(p.shape[0], cot_sorted, ids2d, cptr, block, mm_bf16)
+    g = block_gradient(p.shape[0], cot_sorted, ids2d, cptr, block, mm_bf16, streams,
+                       shard_index)
     acc_new = acc + (g * g).sum(1) * (1.0 / g.shape[1])
     p_cur = p.float()
     upd = lr * g / (torch.sqrt(acc_new) + eps)[:, None]

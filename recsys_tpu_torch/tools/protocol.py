@@ -19,7 +19,10 @@ to 10 epochs with early stopping on the validation loss (patience 1, best
 weights restored), then test AUC, also as a share of the generator's oracle
 margin; ``--table-dtype bf16`` keeps the tables in bf16 (their fused or
 sparse optimizer state stays f32), ``--embedding-lr`` gives the embedding
-optimizer its own rate.  The sequence modes run on ``realistic_ratings``
+optimizer its own rate, ``--embedding-engine`` looks the tables up
+through a sharded engine on the JAX runner's mesh, (data, model) =
+(max(1, n // 2), min(2, n)) over the world's n ranks (``torchrun``, or one
+process).  The sequence modes run on ``realistic_ratings``
 (100,000 users, 20,000 items): ``ncf`` leave-last-2 with one train negative
 and 100 test negatives, pairwise BCE, HR@10 and NDCG@10 every second epoch;
 ``sasrec`` leave-last-2 with 20 test negatives, all-position training
@@ -104,16 +107,31 @@ TABLE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def ctr_model_kwargs(name: str, embedding_optimizer: str | None = None,
-                     table_dtype: str = "f32") -> dict:
+                     table_dtype: str = "f32", embedding_engine: str | None = None,
+                     mesh=None) -> dict:
     """The protocol's options for model ``name``: DLRM computes in bf16;
     an embedding optimizer needs the tables' tap; ``table_dtype`` is the
-    tables' (master) dtype."""
+    tables' (master) dtype; ``embedding_engine`` their lookup on ``mesh``."""
     kw = {"compute_dtype": torch.bfloat16} if name == "dlrm" else {}
     if embedding_optimizer:
         kw["sparse_embed_grads"] = True
+    embed_kw = {}
     if table_dtype != "f32":
-        kw["embed_kw"] = {"param_dtype": TABLE_DTYPES[table_dtype]}
+        embed_kw["param_dtype"] = TABLE_DTYPES[table_dtype]
+    if embedding_engine:
+        embed_kw.update(engine=embedding_engine, mesh=mesh)
+    if embed_kw:
+        kw["embed_kw"] = embed_kw
     return kw
+
+
+def protocol_mesh(device=None):
+    """The JAX runner's mesh for the sharded engines: (data, model) =
+    (max(1, n // 2), min(2, n)) over the world's n ranks."""
+    from recsys_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    _, n = init_distributed(device)
+    return make_mesh(data=max(1, n // 2), model=min(2, n), device=device)
 
 
 def _warm_process(schema, data, batch_size: int, device) -> None:
@@ -132,12 +150,14 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
             patience: int | None = 1, lr: float = 1e-3,
             embedding_optimizer: str | None = None, teacher: str = "fm",
             embedding_lr: float | None = None, table_dtype: str = "f32",
-            device=None) -> dict:
+            embedding_engine: str | None = None, device=None) -> dict:
     """The CTR AUC protocol on ``device`` (default the card); returns the
     report.  ``patience=None`` lifts early stopping (fixed ``epochs``);
     ``embedding_lr`` the embedding optimizer's rate (without an
     ``embedding_optimizer`` it goes unused, as in the JAX runner);
-    ``table_dtype`` 'f32' or 'bf16' the tables'."""
+    ``table_dtype`` 'f32' or 'bf16' the tables'; ``embedding_engine``
+    ('psum', 'dedup', 'a2a', 'a2a_pipelined') the sharded lookup on
+    ``protocol_mesh``."""
     if table_dtype not in TABLE_DTYPES:
         raise ValueError(f"table_dtype={table_dtype!r} not in {tuple(TABLE_DTYPES)}")
     t0 = time.time()
@@ -149,10 +169,13 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
     cut = int(rows * 0.8)
     train = {k: v[idx[:cut]] for k, v in data.items()}
     test = {k: v[idx[cut:]] for k, v in data.items()}
+    mesh = protocol_mesh(device) if embedding_engine else None
     _warm_process(schema, train, batch_size, device)
 
     out = {"rows": rows, "oracle_auc": round(meta["oracle_auc"], 4),
            "ctr": round(meta["ctr"], 4), "models": {}}
+    if embedding_engine:
+        out["embedding_engine"] = embedding_engine
     if embedding_optimizer:
         out["embedding_optimizer"] = embedding_optimizer
     out["teacher"] = teacher
@@ -164,17 +187,19 @@ def run_ctr(rows: int = 1_000_000, models=tuple(DEFAULT_CTR_MODELS.split(",")),
     for name in models:
         t0 = time.time()
         torch.manual_seed(seed)  # each model's initial weights follow the seed alone
-        tr = Trainer(CTR_MODELS[name](schema, **ctr_model_kwargs(name, embedding_optimizer,
-                                                                 table_dtype)),
+        tr = Trainer(CTR_MODELS[name](schema, **ctr_model_kwargs(
+                         name, embedding_optimizer, table_dtype, embedding_engine, mesh)),
                      learning_rate=lr, embedding_optimizer=embedding_optimizer,
                      embedding_lr=embedding_lr if embedding_optimizer else None,
-                     device=device)
+                     device=device, mesh=mesh)
         t_fit = time.time()
         hist = tr.fit(train, batch_size=batch_size, epochs=epochs, validation_split=0.1,
                       early_stopping_patience=patience, verbose=False)
         fit_s = time.time() - t_fit
         auc = tr.evaluate_auc(test)
         epochs_ran = len(hist["loss"])
+        if "a2a_dropped" in hist:  # ids the capacity dropped, as the JAX report has them
+            out.setdefault("a2a_dropped", {})[name] = int(sum(hist["a2a_dropped"]))
         out["models"][name] = {
             "test_auc": round(float(auc), 4),
             "pct_of_oracle": round(100 * (auc - 0.5) / (meta["oracle_auc"] - 0.5), 1),
@@ -688,6 +713,10 @@ def main(argv=None) -> None:
     p.add_argument("--embedding-lr", type=float, default=None,
                    help="ctr: the embedding optimizer's own rate (unused without "
                         "--embedding-optimizer)")
+    p.add_argument("--embedding-engine", default=None,
+                   choices=["psum", "dedup", "a2a", "a2a_pipelined"],
+                   help="ctr: the sharded table lookup, on the mesh (max(1, n // 2), "
+                        "min(2, n)) of the world's n ranks")
     p.add_argument("--table-dtype", default="f32", choices=list(TABLE_DTYPES),
                    help="ctr: the tables' master dtype")
     p.add_argument("--drift-scale", type=float, default=6.0,
@@ -709,7 +738,7 @@ def main(argv=None) -> None:
                       patience=args.patience or None, lr=args.lr,
                       embedding_optimizer=args.embedding_optimizer, teacher=args.teacher,
                       embedding_lr=args.embedding_lr, table_dtype=args.table_dtype,
-                      device=args.device)
+                      embedding_engine=args.embedding_engine, device=args.device)
     elif args.mode == "ncf":
         rep = run_ncf(args.users, args.items, batch_size, epochs, args.seed, device=args.device)
     elif args.mode == "sasrec":

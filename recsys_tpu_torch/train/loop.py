@@ -9,6 +9,15 @@ its last row and drops the padding from its outputs.  Batch assembly, id
 validation and the fused embedding optimizers' host prep run on the
 prefetch thread, ahead of the device.  Serving runs under
 ``torch.inference_mode()``.
+
+On a (data, model) mesh (``parallel/mesh.py``) a Trainer runs in each
+process of the group, one device each.  Tables whose rows the model axis
+divides hold this rank's row shard; every other parameter is replicated
+(made equal from rank 0 at the start).  Each rank computes the loss of its
+data shard's rows; the gradients are the gradients of the mean loss over
+the GLOBAL batch: a replicated parameter's and a table shard's are summed
+over the data axis, and the embedding optimizers take the global batch's
+cotangent.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from recsys_tpu_torch.data.prefetch import prefetch
 from recsys_tpu_torch.kernels import default_device
 from recsys_tpu_torch.ops.attention import Dropout
 from recsys_tpu_torch.ops.embedding import StackedEmbedding
+from recsys_tpu_torch.parallel import mesh as mesh_lib
+from recsys_tpu_torch.parallel.sharding_rules import apply_param_shardings
 from recsys_tpu_torch.train import losses as losses_lib
 from recsys_tpu_torch.train import metrics as metrics_lib
 from recsys_tpu_torch.train import sparse_embed, streaming_embed
@@ -65,18 +76,45 @@ class Trainer:
     ``embedding_lr`` defaults to ``learning_rate``;
     ``embedding_fused_bf16`` rounds the table cotangent to bf16 before it
     is summed (pairs with bf16 compute), else the sum is exact f32.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) trains on the (data, model)
+    mesh of the process group; every rank calls the same methods with the
+    same arguments, under ``data_contract``:
+
+    * ``'global'`` -- every rank passes the global arrays (and the global
+      ``batch_size``) and keeps its data shard's rows; the contract of
+      ``predict``;
+    * ``'local'`` -- each rank passes only the rows of its data shard (the
+      ranks of one data row the same rows; ``batch_size`` stays global),
+      and the fused optimizers' host prep sorts only those.  ``predict``
+      refuses it on more than one process, as the JAX package's does.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable = default_loss,
                  learning_rate: float = 1e-3, weight_decay: float = 0.0, seed: int = 0,
                  embedding_optimizer: str | None = None,
                  embedding_lr: float | None = None,
-                 embedding_fused_bf16: bool = True, device=None):
+                 embedding_fused_bf16: bool = True, device=None, mesh=None,
+                 data_contract: str = "global"):
         if embedding_optimizer is not None and embedding_optimizer not in EMBEDDING_OPTIMIZERS:
             raise ValueError(f"embedding_optimizer={embedding_optimizer!r} not in "
                              f"{(None, *EMBEDDING_OPTIMIZERS)}")
+        if data_contract not in ("global", "local"):
+            raise ValueError(f"data_contract={data_contract!r} not in ('global', 'local')")
         self.device = default_device(device)
         self.model = model.to(self.device)
+        self.mesh, self.data_contract = mesh, data_contract
+        self._n_data = mesh.size(mesh_lib.DATA_AXIS) if mesh is not None else 1
+        self.table_shards = {}  # {table parameter: its model shards} on a mesh
+        if mesh is not None:
+            self.table_shards = apply_param_shardings(self.model, mesh)
+            with torch.no_grad():  # replicas start equal: rank 0's, a shard its column's
+                for name, t in [*self.model.named_parameters(), *self.model.named_buffers()]:
+                    sharded = self.table_shards.get(name, 1) > 1
+                    mesh_lib.broadcast_(t.data, mesh, mesh_lib.DATA_AXIS if sharded else None)
+        self._a2a = [m for m in self.model.modules() if isinstance(m, StackedEmbedding)
+                     and m.engine.startswith("a2a")]
+        self.last_dropped = None  # the a2a engines' dropped ids of the last step
         self.loss_fn = loss_fn
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
@@ -113,6 +151,10 @@ class Trainer:
                     f"sparse_embed_grads=True (found {len(taps)} taps)")
             self.embedding = taps[0]
             self.plan = sparse_embed.build_plan(self.embedding)
+            groups = self.embedding.groups()
+            self._shards = {f"table_{g}": self.embedding.table_shards.get(g, 1) for g in groups}
+            self._row_offsets = {f"table_{g}": self.embedding.row_offset[g] for g in groups
+                                 if g in self.embedding.row_offset}
             for name in self.plan.table_names:
                 getattr(self.embedding, name).requires_grad_(False)
             kind = FUSED.get(embedding_optimizer, embedding_optimizer)
@@ -121,7 +163,7 @@ class Trainer:
             if embedding_optimizer in FUSED:
                 # on the card the prep's arrays come from pinned memory
                 self._prep = streaming_embed.make_host_prep(
-                    self.plan, pin=self.device.type == "cuda")
+                    self.plan, pin=self.device.type == "cuda", shards_by_name=self._shards)
         params = [p for p in self.model.parameters() if p.requires_grad]
         if weight_decay > 0.0:
             self.optimizer = torch.optim.AdamW(params, lr=learning_rate,
@@ -191,32 +233,63 @@ class Trainer:
         the loss as a device scalar, without waiting for it."""
         if self._prep is not None and "embaux0_ids" not in batch:
             batch = dict(batch, **self._prep(batch["sparse"]))
-        db = self._to_device(batch)
+        db = self._to_device(self._local(batch))
         self.model.train()
         self.step += 1
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(self.model(db), db)
-        loss.backward()
+        if self.mesh is None:
+            loss.backward()
+        else:  # the global batch's mean: this rank's share, its gradients summed
+            (loss / self._n_data).backward()
+            self._sum_gradients()
         self.optimizer.step()
         if self.embedding is not None:
+            cot = self.embedding.tap.grad
             if self.embedding_optimizer in FUSED:
                 streaming_embed.apply_updates_fused(
-                    self.tables(), self.emb_state, self.plan, db, self.embedding.tap.grad,
+                    self.tables(), self.emb_state, self.plan, db, cot,
                     lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay,
-                    kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16)
+                    kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16,
+                    mesh=self.mesh, shards_by_name=self._shards,
+                    data_contract=self.data_contract)
             else:
+                ids = db["sparse"]
+                if self.mesh is not None:  # the global batch's ids and cotangent
+                    ids, cot = (mesh_lib.all_gather(x, self.mesh, mesh_lib.DATA_AXIS)
+                                for x in (ids, cot))
                 sparse_embed.apply_updates(
-                    self.tables(), self.emb_state, self.plan, db["sparse"],
-                    self.embedding.tap.grad, kind=self.embedding_optimizer,
-                    lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay)
+                    self.tables(), self.emb_state, self.plan, ids, cot,
+                    kind=self.embedding_optimizer, lr=self.embedding_lr, step=self.step,
+                    weight_decay=self.weight_decay, row_offsets=self._row_offsets)
             self.embedding.tap = None
-        return loss.detach()
+        drops = [m.dropped for m in self._a2a if m.dropped is not None]
+        self.last_dropped = sum(drops) if drops else None
+        loss = loss.detach()
+        return loss if self.mesh is None else self._data_sum(loss) / self._n_data
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a host batch, by the data contract."""
+        if self.mesh is None or self.data_contract == "local":
+            return batch
+        return mesh_lib.shard_batch(batch, self.mesh)
+
+    def _data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axis (``x`` itself without a mesh)."""
+        if self.mesh is None or self._n_data == 1:
+            return x
+        return mesh_lib.all_reduce(x, self.mesh, mesh_lib.DATA_AXIS)
+
+    def _sum_gradients(self) -> None:
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.copy_(self._data_sum(p.grad))
 
     def fit(self, train_data, batch_size: int = 512, epochs: int = 10,
             val_data: dict | None = None, validation_split: float = 0.0,
             early_stopping_patience: int | None = None,
-            checkpoint_path: str | None = None, verbose: bool = True,
-            log_jsonl: str | None = None,
+            checkpoint_path: str | None = None, checkpoint_sharded: bool | None = None,
+            verbose: bool = True, log_jsonl: str | None = None,
             eval_fn: Callable | None = None, eval_every: int = 1) -> dict:
         """Train on a dict of aligned numpy arrays (with the label key), or
         on a stream of batch dicts (a re-iterable object, each ``iter()`` a
@@ -242,7 +315,12 @@ class Trainer:
 
         ``checkpoint_path`` keeps the best checkpoint there
         (``checkpoint.BestCheckpointer`` on the validation loss, or on the
-        training loss without validation data).  ``log_jsonl`` appends one
+        training loss without validation data), each rank writing its own
+        shards (``checkpoint.save_sharded``) when ``checkpoint_sharded``,
+        by default on a mesh with a model axis.  On a mesh, an epoch whose
+        a2a engines dropped ids adds ``a2a_dropped`` to its line, and
+        ``history['a2a_dropped']`` holds each epoch's count when the model
+        has an a2a engine.  ``log_jsonl`` appends one
         JSON record an epoch: ``epoch``, ``step``, ``loss``,
         ``epoch_seconds`` and, with validation data, ``val_loss``.
 
@@ -264,8 +342,17 @@ class Trainer:
             n = _num_examples(train_data)
             if n == 0:
                 raise ValueError("empty training dataset")
-            batch_size = min(batch_size, n)
-        checkpointer = BestCheckpointer(checkpoint_path) if checkpoint_path else None
+            local = self.mesh is not None and self.data_contract == "local"
+            batch_size = min(batch_size, n * (self._n_data if local else 1))
+            if batch_size % self._n_data:
+                raise ValueError(f"batch_size {batch_size} does not split over a data "
+                                 f"axis of {self._n_data}")
+            slice_bs = batch_size // self._n_data if local else batch_size
+        if checkpoint_sharded is None:
+            checkpoint_sharded = self.mesh is not None and \
+                self.mesh.size(mesh_lib.MODEL_AXIS) > 1
+        checkpointer = (BestCheckpointer(checkpoint_path, sharded=checkpoint_sharded)
+                        if checkpoint_path else None)
         history = {"loss": [], "val_loss": []}
         best_val, best_state, bad_epochs = np.inf, None, 0
         for epoch in range(epochs):
@@ -275,15 +362,21 @@ class Trainer:
             else:
                 order = np.arange(n)
                 self._shuffle_rng.shuffle(order)
-                batches = self._batches(train_data, batch_size, order, True, self._prep)
-            total, count = None, 0
+                batches = self._batches(train_data, slice_bs, order, True, self._prep)
+            total, count, dropped = None, 0, 0
             for batch, _ in prefetch(batches):
                 loss = self.train_step(batch)
                 total = loss if total is None else total + loss
+                if self.last_dropped is not None:
+                    dropped = dropped + self.last_dropped
                 count += 1
             train_loss = float(total) / count if count else 0.0
             history["loss"].append(train_loss)
             msg = f"epoch {epoch + 1}/{epochs} loss={train_loss:.5f}"
+            if self._a2a:
+                history.setdefault("a2a_dropped", []).append(int(dropped))
+                if int(dropped):
+                    msg += f" a2a_dropped={int(dropped)}"
             if val_data is not None:
                 val_loss = self.evaluate_loss(val_data, batch_size)
                 history["val_loss"].append(val_loss)
@@ -321,19 +414,27 @@ class Trainer:
         """Mean loss over the whole dataset, added up on the device.  The
         padded tail is corrected exactly for a loss that is a mean of
         per-example terms: ``sum_valid = L_pad·B - pad·L_tile``, with
-        ``L_tile`` the loss of a batch holding only the repeated row."""
+        ``L_tile`` the loss of a batch holding only the repeated row (on a
+        mesh, each rank's share of it, summed over the data axis)."""
         self.model.eval()
+        local = self.mesh is not None and self.data_contract == "local"
+        bs = batch_size // self._n_data if local else batch_size
+        share = self._n_data if local else 1  # examples of the global batch a valid row is
         total, n = None, 0
         with torch.inference_mode():
-            for batch, valid in prefetch(self._batches(data, batch_size)):
-                db = self._to_device(batch)
-                part = self.loss_fn(self.model(db), db) * batch_size
-                if valid < batch_size:
-                    tiled = {k: v[-1:].expand_as(v).contiguous() for k, v in db.items()}
-                    part = part - self.loss_fn(self.model(tiled), tiled) * (batch_size - valid)
+            for batch, valid in prefetch(self._batches(data, bs)):
+                db = self._to_device(self._local(batch))
+                rows = _num_examples(db)
+                part = self.loss_fn(self.model(db), db) * rows
+                if valid < bs:
+                    last = self._to_device({k: v[-1:] for k, v in batch.items()})
+                    tiled = {k: v.expand(rows, *v.shape[1:]).contiguous()
+                             for k, v in last.items()}
+                    pad = (bs - valid) * share / self._n_data
+                    part = part - self.loss_fn(self.model(tiled), tiled) * pad
                 total = part if total is None else total + part
-                n += valid
-        return float(total) / n if n else 0.0
+                n += valid * share
+        return float(self._data_sum(total)) / n if n else 0.0
 
     # -- serving ----------------------------------------------------------
     def predict(self, data: dict, batch_size: int = 4096,
@@ -344,16 +445,29 @@ class Trainer:
 
         ``consumer(outputs, start)`` -- if given, each batch's host outputs
         (padding rows dropped; ``start`` is the dataset offset) are handed
-        over as they arrive and nothing is accumulated (returns None)."""
+        over as they arrive and nothing is accumulated (returns None).
+        On a mesh (global contract only) each rank runs its rows and every
+        rank gets every output."""
+        if self.data_contract == "local" and torch.distributed.is_initialized() and \
+                torch.distributed.get_world_size() > 1:
+            raise NotImplementedError(
+                "predict returns every example's output and keeps the global contract: "
+                "pass the same global arrays on every rank (fit, evaluate_loss and "
+                "evaluate_auc take the local contract)")
         self.model.eval()
         outs, start = [], 0
+
+        def whole(x):  # every data rank's rows, in order
+            return x if self.mesh is None else mesh_lib.all_gather(x, self.mesh,
+                                                                   mesh_lib.DATA_AXIS)
+
         with torch.inference_mode():
             for batch, valid in prefetch(self._batches(data, batch_size)):
-                out = self.model(self._to_device(batch))
+                out = self.model(self._to_device(self._local(batch)))
                 if isinstance(out, dict):
-                    out = {k: v[:valid].cpu().numpy() for k, v in out.items()}
+                    out = {k: whole(v)[:valid].cpu().numpy() for k, v in out.items()}
                 else:
-                    out = out[:valid].cpu().numpy()
+                    out = whole(out)[:valid].cpu().numpy()
                 if consumer is not None:
                     consumer(out, start)
                 else:
@@ -371,16 +485,24 @@ class Trainer:
         ``data[label_key]``, over a dict of arrays or a stream of batch
         dicts (as ``fit`` takes one).  Each batch's scores add to two
         histograms on the device (``metrics.AucAccumulator``), the padded
-        rows weighted 0, so no per-example score reaches the host."""
-        batches = (self._batches(data, batch_size) if isinstance(data, dict)
+        rows weighted 0, so no per-example score reaches the host; on a
+        mesh the histograms are summed over the data axis at the end."""
+        local = self.mesh is not None and self.data_contract == "local"
+        bs = batch_size // self._n_data if local else batch_size
+        batches = (self._batches(data, bs) if isinstance(data, dict)
                    else self._streamed(data))
         acc = metrics_lib.AucAccumulator(AUC_BINS, device=self.device)
         self.model.eval()
+        first = 0  # this rank's first row in the batch
         with torch.inference_mode():
             for batch, valid in prefetch(batches):
-                db = self._to_device(batch)
+                db = self._to_device(self._local(batch))
                 out = self.model(db).float()
                 labels = db[label_key]
-                weights = (torch.arange(labels.shape[0], device=self.device) < valid).float()
+                if self.mesh is not None and not local:
+                    first = self.mesh.index(mesh_lib.DATA_AXIS) * labels.shape[0]
+                rows = first + torch.arange(labels.shape[0], device=self.device)
+                weights = (rows < valid).float()
                 acc.update(torch.sigmoid(out) if from_logits else out, labels, weights)
+        acc.pos, acc.neg = self._data_sum(acc.pos), self._data_sum(acc.neg)
         return acc.result()

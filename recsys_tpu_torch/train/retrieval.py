@@ -13,7 +13,9 @@ and its k best, ``topk_scores_streaming`` a scan over catalog tiles
 merging a running (Q, k) set.  Those select with a stable descending sort,
 not ``torch.topk``, whose order among equal scores is unspecified: equal
 scores rank the lower item id first, as ``lax.top_k`` and the kernel rank
-them.  ``topk_scores_sharded`` comes with the multi-device slice.
+them.  ``topk_scores_sharded`` splits the catalog over the model axis of a
+mesh: each rank takes the top k of its shard through ``topk_scores``
+(the kernel, in its domain) and the candidates merge after an all-gather.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from recsys_tpu_torch.kernels import default_device, dispatch
 from recsys_tpu_torch.kernels import topk as topk_ref
+from recsys_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -47,6 +50,34 @@ def _best(scores: torch.Tensor, k: int):
     """The k best columns of each row, best first, ties to the lower column."""
     values, cols = torch.sort(scores, dim=1, descending=True, stable=True)
     return values[:, :k], cols[:, :k].to(torch.int32)
+
+
+def topk_scores_sharded(mesh, query_embs: torch.Tensor, item_embs: torch.Tensor,
+                        k: int = 10, normalize: bool = False):
+    """Catalog-sharded top-k over the model axis of ``mesh``: every rank
+    passes the same queries and the whole catalog, takes the top k of its
+    rows ``[s·ceil(N/S), (s+1)·ceil(N/S))`` (ids made global; a shard of
+    fewer than k rows fills with -inf scores past the catalog), and the
+    S·k candidates of each query merge after one all-gather, ties to the
+    lower id.  Returns what ``topk_scores`` returns, on every rank."""
+    n_model, s = mesh.size(mesh_lib.MODEL_AXIS), mesh.index(mesh_lib.MODEL_AXIS)
+    n = item_embs.shape[0]
+    ns = -(-n // n_model)
+    lo, hi = min(s * ns, n), min((s + 1) * ns, n)
+    q = query_embs
+    values = torch.full((q.shape[0], k), float("-inf"), device=q.device)
+    ids = torch.full((q.shape[0], k), n, dtype=torch.int32, device=q.device)
+    kk = min(k, hi - lo)
+    if kk:
+        v, i = topk_scores(q, item_embs[lo:hi], kk, normalize)
+        values[:, :kk], ids[:, :kk] = v, i + lo
+    # (S·Q, k) in shard order: a stable sort keeps the lower id first on ties
+    av = mesh_lib.all_gather(values, mesh, mesh_lib.MODEL_AXIS)
+    ai = mesh_lib.all_gather(ids, mesh, mesh_lib.MODEL_AXIS)
+    av = av.view(n_model, q.shape[0], k).transpose(0, 1).reshape(q.shape[0], -1)
+    ai = ai.view(n_model, q.shape[0], k).transpose(0, 1).reshape(q.shape[0], -1)
+    best_v, sel = _best(av, k)
+    return best_v, ai.gather(1, sel.long())
 
 
 def topk_scores_streaming(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,

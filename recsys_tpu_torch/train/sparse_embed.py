@@ -124,15 +124,22 @@ def rowwise_adagrad_update(table, acc, rows, cot, *, lr, eps=1e-8, weight_decay=
 
 def apply_updates(tables: dict, state: dict, plan: EmbedPlan, sparse_ids: torch.Tensor,
                   pert_grad: torch.Tensor, *, kind: str, lr: float, step: int,
-                  weight_decay: float = 0.0) -> None:
+                  weight_decay: float = 0.0, row_offsets: dict | None = None) -> None:
     """One touched-rows step of ``kind`` over every group table, in place:
     ``state[name]`` is ``{'m', 'v'}`` for ``lazy_adam``, ``{'acc'}`` for
-    ``rowwise_adagrad`` (``init_state``'s)."""
+    ``rowwise_adagrad`` (``init_state``'s).  A table named in
+    ``row_offsets`` is a model shard, the rows ``[offset, offset + len)``
+    of the global table, whose state follows its rows: it takes the
+    batch's occurrences in its rows only."""
     if kind not in KINDS:
         raise ValueError(f"unknown sparse embedding optimizer {kind!r}: {KINDS}")
     with torch.no_grad():
         for name, (rows, cot) in zip(plan.table_names,
                                      group_rows_and_cots(plan, sparse_ids, pert_grad)):
+            if row_offsets and name in row_offsets:
+                off = row_offsets[name]
+                mine = (rows >= off) & (rows < off + tables[name].shape[0])
+                rows, cot = rows[mine] - off, cot[mine]
             st = state[name]
             if kind == "lazy_adam":
                 lazy_adam_update(tables[name], st["m"], st["v"], rows, cot, lr=lr, step=step,

@@ -1,5 +1,5 @@
 """Fused embedding backward + optimizer updates (the port of
-recsys_tpu.train.streaming_embed for one device and one stream).
+recsys_tpu.train.streaming_embed).
 
 Exact dense-optimizer semantics: every table row is updated, duplicate ids
 sum, as a dense scatter-add followed by dense Adam (or rowwise AdaGrad)
@@ -15,6 +15,16 @@ would, in one pass over each table.  Per step and table group:
    launch updates the table and its optimizer state in place
    (``kernels/dispatch.py::fused_embedding_adam`` /
    ``fused_embedding_rowwise_adagrad``).
+
+On a (data, model) mesh (``parallel/mesh.py``) the same exact math runs
+on every rank.  Model axis: a row-sharded table's prep fences align to its
+row shards (``shards``), so rank s of the model axis updates its shard
+through the kernels' shard window.  Data axis: under the global data
+contract every rank preps the global batch, and the cotangent of the rank's
+rows is all-gathered into the global batch before the permutation; under
+the local contract each rank preps and permutes its own rows, and the
+sorted streams are all-gathered, one stream a data rank, for the kernels'
+multi-stream form.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 
 from recsys_tpu_torch.data import native
 from recsys_tpu_torch.kernels import dispatch
+from recsys_tpu_torch.parallel import mesh as mesh_lib
 from recsys_tpu_torch.train.sparse_embed import EmbedPlan
 
 DEFAULT_BLOCK = 512  # table rows per kernel block: 196 blocks per 100k-row table
@@ -39,7 +50,7 @@ PREP_CH = 1
 
 
 def host_prep_group(rows: np.ndarray, *, pack: int = 1, vp: int,
-                    block: int = DEFAULT_BLOCK, ch: int = DEFAULT_CH):
+                    block: int = DEFAULT_BLOCK, ch: int = DEFAULT_CH, shards: int = 1):
     """Sort and bucket one group's vocab ids for the fused kernels.
 
     rows: (n,) non-negative int32 vocab ids (field offsets applied, ids
@@ -50,16 +61,26 @@ def host_prep_group(rows: np.ndarray, *, pack: int = 1, vp: int,
     chunks ``[cptr[k], cptr[k+1])`` in stable sorted order, ``idx`` holds
     each slot's position in ``rows``, and the rest is the sentinel
     ``nb·block·pack`` (idx 0).  The static padding chunks belong to the
-    last block (``cptr[nb] = nc_max``).  Bit-equal to the JAX package's
-    ``host_prep_group`` with one shard; the per-block copy loop is one
-    vectorised scatter here.
+    last block (``cptr[nb] = nc_max``).  ``shards`` > 1 (a table row-sharded
+    over a model axis, ``vp % shards == 0``) aligns the block fences to the
+    shards: shard s owns rows ``[s·vs, (s+1)·vs)`` in ``nb_s =
+    ceil(vs / block)`` blocks.  Bit-equal to the JAX package's
+    ``host_prep_group``; the per-block copy loop is one vectorised scatter
+    here.
     """
+    if shards < 1 or vp % shards:
+        raise ValueError(f"vp={vp} not divisible by shards={shards}")
     n = rows.shape[0]
-    nb = -(-vp // block)
+    vs = vp // shards
+    nb_s = -(-vs // block)
+    nb = shards * nb_s
     sentinel = np.int32(nb * block * pack)
     prow = rows // pack
     order = np.argsort(prow, kind="stable")
-    bounds = np.minimum(np.arange(nb + 1) * block, vp)
+    # nb_s fences a shard, at s·vs + j·block clamped to the shard's end
+    s_idx = np.arange(nb + 1) // nb_s
+    j_idx = np.arange(nb + 1) - s_idx * nb_s
+    bounds = np.minimum(s_idx * vs + j_idx * block, np.minimum((s_idx + 1) * vs, vp))
     ptr = np.searchsorted(prow[order], bounds)
     chunks = -(-np.diff(ptr) // ch)
     cptr = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int32)
@@ -78,7 +99,7 @@ def host_prep_group(rows: np.ndarray, *, pack: int = 1, vp: int,
 
 
 def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = PREP_CH,
-                   pin: bool = False):
+                   pin: bool = False, shards_by_name: dict | None = None):
     """Returns ``prep(sparse (B, F) int) -> {aux key: array}``: the native
     prep (``data.native.fused_prep_group``) of every group at chunk length
     ``ch`` (one for every group: one launch of #4 takes one).
@@ -91,12 +112,20 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = PREP_C
     host allocator, which reuses a block only after the copies recorded on
     it have run), for ``non_blocking`` copies to the card.  Run it on the
     host, behind the prefetch thread, as ``Trainer.fit`` does: the native
-    calls release the interpreter lock."""
+    calls release the interpreter lock.
+
+    ``shards_by_name`` (table name -> shard count, as ``Trainer`` placed the
+    tables; 1 where a name is missing) sets each group's shard fences;
+    ``apply_updates_fused`` must run with the same.  Under the local data
+    contract each rank preps only its own rows, and ``apply_updates_fused``
+    all-gathers the sorted streams."""
     geoms = []
-    for v, cols, offs in zip(plan.group_vocab, plan.group_cols, plan.group_offsets):
+    for name, v, cols, offs in zip(plan.table_names, plan.group_vocab, plan.group_cols,
+                                   plan.group_offsets):
         vp = max(v, 1)
-        geoms.append((vp, min(block, vp), np.asarray(cols, np.int32),
-                      np.asarray(offs, np.int32)))
+        shards = (shards_by_name or {}).get(name, 1)
+        geoms.append((vp, min(block, vp // shards), np.asarray(cols, np.int32),
+                      np.asarray(offs, np.int32), shards))
 
     def empty(shape):
         if not pin:
@@ -109,11 +138,12 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = PREP_C
         sparse = np.ascontiguousarray(sparse, np.int32)
         b = sparse.shape[0]
         aux = {}
-        for g, (vp, blk, cols, offs) in enumerate(geoms):
-            nc, nb = native.prep_geometry(b * len(cols), vp, blk, ch)
+        for g, (vp, blk, cols, offs, shards) in enumerate(geoms):
+            nc, nb = native.prep_geometry(b * len(cols), vp, blk, ch, shards)
             (ids2d, ids_np), (src, src_np), (cptr, cptr_np) = (
                 empty((nc, ch)), empty((nc * ch,)), empty((nb + 1,)))
-            native.fused_prep_group(sparse, cols, offs, vp, blk, ch, ids_np, src_np, cptr_np)
+            native.fused_prep_group(sparse, cols, offs, vp, blk, ch, ids_np, src_np, cptr_np,
+                                    shards)
             aux[f"embaux{g}_ids"], aux[f"embaux{g}_src"], aux[f"embaux{g}_ptr"] = ids2d, src, cptr
         return aux
 
@@ -123,7 +153,9 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK, ch: int = PREP_C
 def apply_updates_fused(tables: dict, state: dict, plan: EmbedPlan, batch: dict,
                         pert_grad: torch.Tensor, *, lr: float, step: int,
                         weight_decay: float = 0.0, kind: str = "adam",
-                        block: int = DEFAULT_BLOCK, mm_bf16: bool = True) -> None:
+                        block: int = DEFAULT_BLOCK, mm_bf16: bool = True, mesh=None,
+                        shards_by_name: dict | None = None,
+                        data_contract: str = "global") -> None:
     """One fused update of every group table, in place.
 
     ``batch`` carries :func:`make_host_prep`'s arrays on the tables'
@@ -138,26 +170,51 @@ def apply_updates_fused(tables: dict, state: dict, plan: EmbedPlan, batch: dict,
     version's either way.  Adam makes every group's cotangent first and
     then updates all the groups in one launch
     (``dispatch.fused_embedding_adam_pass``).
+
+    With a ``mesh``, ``tables`` and ``state`` are this rank's (a row-sharded
+    table's shard, ``shards_by_name`` giving each table's shard count as
+    the prep had it) and ``pert_grad`` is the cotangent of this rank's rows.
+    Under ``data_contract='global'`` the batch's arrays are the global
+    batch's prep; under ``'local'`` this rank's rows', and the sorted
+    streams of the data axis are all-gathered.
     """
     if kind not in ("adam", "rowwise_adagrad"):
         raise ValueError(f"unknown fused kind {kind!r}")
+    if data_contract not in ("global", "local"):
+        raise ValueError(f"data_contract={data_contract!r} not in ('global', 'local')")
     flat = pert_grad.reshape(-1, plan.embed_dim)
+    streams, model_index = 1, 0
+    if mesh is not None:
+        model_index = mesh.index(mesh_lib.MODEL_AXIS)
+        if data_contract == "global":  # the global batch's cotangent, rows in order
+            flat = mesh_lib.all_gather(flat, mesh, mesh_lib.DATA_AXIS)
+        else:
+            streams = mesh.size(mesh_lib.DATA_AXIS)
     with torch.no_grad():
-        groups = []  # (table, state, cotangent, ids2d, cptr, block) a group
+        groups = []  # (table, state, cotangent, ids2d, cptr, block, shard index) a group
         for g, name in enumerate(plan.table_names):
             cot = flat.index_select(0, batch[f"embaux{g}_src"])
             if mm_bf16:
                 cot = cot.bfloat16()
+            ids2d, cptr = batch[f"embaux{g}_ids"], batch[f"embaux{g}_ptr"]
+            if streams > 1:  # every data rank's sorted stream, one after the other
+                cot, ids2d, cptr = (mesh_lib.all_gather(x, mesh, mesh_lib.DATA_AXIS)
+                                    for x in (cot, ids2d, cptr))
+            sharded = (shards_by_name or {}).get(name, 1) > 1
+            if sharded and mesh is None:
+                raise ValueError(f"{name} is prepped for model shards but no mesh was passed")
             t = tables[name]
-            groups.append((t, state[name], cot, batch[f"embaux{g}_ids"],
-                           batch[f"embaux{g}_ptr"], min(block, t.shape[0])))
+            groups.append((t, state[name], cot, ids2d, cptr, min(block, t.shape[0]),
+                           model_index if sharded else 0))
         if kind == "adam":  # every group's cotangent first, then one launch
-            t, st, cot, ids2d, cptr, blk = zip(*groups)
+            t, st, cot, ids2d, cptr, blk, si = zip(*groups)
             dispatch.fused_embedding_adam_pass(
                 t, [s["m"] for s in st], [s["v"] for s in st], cot, ids2d, cptr, step,
-                blocks=blk, lr=lr, wd=weight_decay, mm_bf16=mm_bf16)
+                blocks=blk, lr=lr, wd=weight_decay, mm_bf16=mm_bf16, streams=streams,
+                shard_indices=si)
             return
-        for t, st, cot, ids2d, cptr, blk in groups:
+        for t, st, cot, ids2d, cptr, blk, si in groups:
             dispatch.fused_embedding_rowwise_adagrad(t, st["acc"], cot, ids2d, cptr,
                                                      block=blk, lr=lr, wd=weight_decay,
-                                                     mm_bf16=mm_bf16)
+                                                     mm_bf16=mm_bf16, streams=streams,
+                                                     shard_index=si)

@@ -1,8 +1,8 @@
 """The port's ``python -m recsys_tpu_torch.cli`` on the CPU: each ported
 task at a few epochs prints the JAX CLI's result line with its metric in
 range (as tests/test_cli.py reads the JAX one), din and multitask also on
-review and census files the test writes; the flags the port does not have
-yet exit naming their ROADMAP item; the file flags run on the
+review and census files the test writes; ``ctr``'s mesh flags run in one
+process and under torchrun; the file flags run on the
 ``tests/assets`` files; and the CLI, the protocol runner and
 the models import neither JAX, pandas nor the JAX package."""
 import functools
@@ -134,14 +134,33 @@ def test_multitask_refuses_models_it_does_not_have():
         cli.main(["multitask", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("argv, item", [
-    (("ctr", "--embedding-engine", "a2a"), "Queue 1 item 10"),
-    (("ctr", "--mesh-model", "2"), "Queue 1 item 10"),
-    (("ctr", "--capacity-factor", "1.5"), "Queue 1 item 10"),
-])
-def test_refused_tasks_and_flags_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=re.escape(f"ROADMAP.md {item}")):
-        cli.main([*argv, "--device", "cpu"])
+@pytest.mark.parametrize("argv, dropped", [
+    (("ctr", "--embedding-engine", "a2a"), [0]),
+    (("ctr", "--embedding-engine", "a2a_pipelined", "--capacity-factor", "0"), [0]),
+    (("ctr", "--model", "dlrm", "--mesh-model", "1", "--embedding-engine", "psum",
+      "--embedding-optimizer", "fused_adam"), None),
+], ids=["a2a", "capacity-factor-0", "dlrm-psum-fused_adam"])
+def test_mesh_flags_run_in_one_process(capsys, argv, dropped):
+    """World size 1: the (1, 1) mesh the JAX CLI builds on one chip, every
+    table through the engine (its one shard); ``--capacity-factor 0`` is
+    the exact mode, which drops nothing."""
+    res = cli.main([*argv, "--epochs", "1", "--device", "cpu"])
+    assert 0.0 <= _value(capsys.readouterr().out, r"test AUC: ([0-9.]+)\n") <= 1.0
+    assert np.isfinite(res["loss"]).all() and res.get("a2a_dropped") == dropped
+
+
+def test_mesh_model_runs_under_torchrun():
+    """``torchrun --nproc-per-node 2 ... ctr --mesh-model 2``: a (1, 2) mesh
+    of two gloo ranks, the tables row-sharded over them; both ranks train
+    the same replica and print the same test AUC."""
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "2", "-m", "recsys_tpu_torch.cli", "ctr",
+                        "--mesh-model", "2", "--epochs", "1", "--device", "cpu"],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    aucs = re.findall(r"test AUC: ([0-9.]+)\n", r.stdout)
+    assert len(aucs) == 2 and aucs[0] == aucs[1], r.stdout
+    assert 0.0 <= float(aucs[0]) <= 1.0
 
 
 ASSETS = REPO / "tests" / "assets"
@@ -207,7 +226,11 @@ def test_entry_points_import_neither_jax_nor_the_jax_package():
             "recsys_tpu_torch.models.ctr.esmm, recsys_tpu_torch.models.ctr.mmoe, "
             "recsys_tpu_torch.models.ctr.ple, recsys_tpu_torch.data.criteo, "
             "recsys_tpu_torch.data.streaming, recsys_tpu_torch.data.native, "
-            "recsys_tpu_torch.train.checkpoint; "
+            "recsys_tpu_torch.train.checkpoint, recsys_tpu_torch.parallel.mesh, "
+            "recsys_tpu_torch.parallel.sharding_rules, "
+            "recsys_tpu_torch.parallel.embedding_sharding, recsys_tpu_torch.parallel.spawn, "
+            "recsys_tpu_torch.tools.mesh_check, recsys_tpu_torch.train.retrieval, "
+            "recsys_tpu_torch.train.streaming_embed, recsys_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'recsys_tpu', 'pandas')]; print(bad); "
             "sys.exit(bool(bad))")

@@ -92,3 +92,18 @@ def test_bf16_table_models_match_jax(name):
         got = tm.eval()({k: torch.from_numpy(v) for k, v in batch.items()}).float().numpy()
     assert got.shape == want.shape == (64,)
     np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+def test_embedding_engine_runs_on_the_runners_mesh(trainers, capsys):
+    """``--embedding-engine a2a`` on the JAX runner's mesh, (1, 1) in one
+    process: every table through the engine, the report naming it and the
+    ids it dropped (none at the default capacity on these rows)."""
+    protocol.main(["ctr", "--rows", "3000", "--models", "dlrm", "--epochs", "1",
+                   "--embedding-engine", "a2a", "--device", "cpu"])
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["embedding_engine"] == "a2a" and 0.0 <= rep["models"]["dlrm"]["test_auc"] <= 1.0
+    assert rep["a2a_dropped"] == {"dlrm": 0}
+    dlrm = trainers[-1]
+    assert dlrm.mesh.shape == {"data": 1, "model": 1}
+    emb = dlrm.model.embedding
+    assert emb.engine == "a2a" and sorted(emb.table_shards) == emb.groups()
