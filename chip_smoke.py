@@ -258,6 +258,20 @@ checkout.  Phases, one JSON line each:
                 steps' shapes.  Its (b) times are one-card gloo times,
                 not NCCL or several cards'; its seconds go on the slice
                 seconds line.
+24h. tools   -- the measuring tools at the bench shapes: tools/roofline.py
+                (each phase of the DLRM step alone against its H100 bound,
+                and Trainer.train_step with fused Adam), tools/dense_probe.py
+                (the achievable bf16 rate, the dense tail's 24 matmuls,
+                its composition floor, the levers), a cut
+                tools/kernel_sweep.py (#1 and #6 as train steps at B = 4096,
+                F = 26 and 128, D = 16 and 128; #10 at 1024 queries over
+                100,000 and 1,000,000 items, D = 64, each beside its torch
+                routes), each launch of #1, #4, #6 and #10 counted;
+                tools/comm_bytes.py and tools/skew_capacity.py on a (2, 2)
+                world of gloo ranks, their counts on the card equal to the
+                same ranks' on the CPU; comm_bytes at world size 1 and
+                tools/scaling.py at one rank, under NCCL.  Its seconds go
+                on the slice seconds line.
 25. kernels  -- the total time, then one line naming every kernel with its
                 launches and times.
 
@@ -4677,6 +4691,115 @@ def phase_multidevice(rng, dev) -> dict:
     return res
 
 
+TOOLS_ITERS = 10          # cuda_ms calls a timing in the tools phase
+TOOLS_SWEEP = {"batches": (4096,), "fields": (26, 128), "dims": (16, 128)}
+TOOLS_TOPK = {"catalogs": (100_000, 1_000_000), "topk_dims": (64,)}
+TOOLS_COMM = dict(batch=4096, vocab=VOCAB)  # comm_bytes' and skew_capacity's defaults
+TOOLS_SCALING = dict(per_device_batch=2048, steps=5, vocab=10_000, embed_dim=16)  # scaling's
+
+
+def finite_ms(label: str, *values) -> None:
+    if not all(isinstance(v, float) and np.isfinite(v) and v > 0 for v in values):
+        raise AssertionError(f"tools {label}: times {values}")
+
+
+def phase_tools(dev) -> dict:
+    """The measuring tools on the card (module docstring, 24h).  Returns
+    {'launches': the kernels the in-process tools and the scaling rank
+    launched, 'reports': each tool's report}."""
+    import torch
+
+    from recsys_tpu_torch.kernels import dispatch
+    from recsys_tpu_torch.parallel.spawn import spawn
+    from recsys_tpu_torch.tools import (comm_bytes, dense_probe, kernel_sweep, mesh_check as mc,
+                                        roofline, scaling, skew_capacity)
+
+    reports = {}
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    roof = roofline.run(BATCH, TOOLS_ITERS, device=dev)
+    for name, e in roof["phases"].items():
+        finite_ms(f"roofline {name}", e["ms"], e["sol_ms"])
+    finite_ms("roofline full step", roof["full_step_ms"])
+    reports["roofline"] = roof
+    emit({"phase": "tools", "tool": "roofline", "seconds": time.perf_counter() - t0,
+          **{k: v for k, v in roof.items() if k != "nvidia_smi"}})
+    t0 = time.perf_counter()
+    dense = dense_probe.run(TOOLS_ITERS, device=dev)
+    finite_ms("dense_probe", dense["achievable_peak"]["ms"], dense["composition_floor_ms"],
+              *(r["ms"] for r in dense["matmuls"]), *dense["phase_ms"].values())
+    reports["dense_probe"] = dense
+    emit({"phase": "tools", "tool": "dense_probe", "seconds": time.perf_counter() - t0,
+          **{k: v for k, v in dense.items() if k != "nvidia_smi"}})
+    t0 = time.perf_counter()
+    sweep = {"interactions": kernel_sweep.sweep_interactions(TOOLS_ITERS, device=dev,
+                                                             **TOOLS_SWEEP),
+             "topk": kernel_sweep.sweep_topk(3, device=dev, **TOOLS_TOPK)}
+    for row in sweep["interactions"]:
+        finite_ms(f"kernel_sweep {row}", *(row[k] for k in ("fm_torch_ms", "fm_kernel_ms",
+                                                            "dot_torch_ms", "dot_kernel_ms")))
+    for row in sweep["topk"]:
+        finite_ms(f"kernel_sweep {row}", *(row[k] for k in ("torch_full_ms", "torch_stream_ms",
+                                                            "library_ms", "kernel_ms")))
+    reports["kernel_sweep"] = sweep
+    emit({"phase": "tools", "tool": "kernel_sweep", "seconds": time.perf_counter() - t0, **sweep})
+    launches = dict(dispatch.LAUNCHES)
+    for name in ("dot_interaction", "embedding_adam", "fm_pairwise_vector", "topk_scores"):
+        if not launches[name]:
+            raise AssertionError(f"tools: {name} never launched: {launches}")
+
+    # counts are properties of the program: gloo ranks on the card read as on the CPU.
+    # One world runs both tools on both devices: a world's start costs more than the
+    # tools' work in it
+    table, ids = skew_capacity.inputs(TOOLS_COMM["batch"], TOOLS_COMM["vocab"])
+    comm_args = ((2, 2), TOOLS_COMM["batch"], TOOLS_COMM["vocab"], EMBED_DIM, 8)
+    devices = (dev, torch.device("cpu"))
+    jobs = [job for device in devices for job in (
+        (comm_bytes.rank_counts, (*comm_args, comm_bytes.DTYPE, device.type), {}),
+        (skew_capacity.rank_drops, ((2, 2), table, ids, skew_capacity.CAPACITY_FACTORS,
+                                    device.type), {}))]
+    t0 = time.perf_counter()
+    ranks = spawn(mc.run_jobs, 4, jobs, device=dev.type, backend="gloo")
+    world_s = {"gloo (2, 2)": time.perf_counter() - t0}
+    got = {device.type: (
+        comm_bytes.report([r[2 * i] for r in ranks], *comm_args, "gloo", device),
+        skew_capacity.report([r[2 * i + 1] for r in ranks], (2, 2), TOOLS_COMM["batch"],
+                             TOOLS_COMM["vocab"], 0, ids, "gloo", device))
+        for i, device in enumerate(devices)}
+    for i, (label, keys) in enumerate((("comm_bytes", ("engines", "shard_grad_sync")),
+                                       ("skew_capacity", ("results", "min_zero_drop_cf")))):
+        card_rep, cpu_rep = got[dev.type][i], got["cpu"][i]
+        if any(card_rep[k] != cpu_rep[k] for k in keys):
+            raise AssertionError(f"tools {label}: the card's counts differ from the CPU's: "
+                                 f"{card_rep} against {cpu_rep}")
+        reports[label] = card_rep
+        emit({"phase": "tools", "tool": label, "equal_on_cpu": True, **card_rep})
+    # comm_bytes at world size 1 and scaling at one rank, under NCCL in one world
+    nccl_args = ((1, 1), TOOLS_COMM["batch"], TOOLS_COMM["vocab"], EMBED_DIM, 8)
+    t0 = time.perf_counter()
+    ((counts, fit),) = spawn(mc.run_jobs, 1, [
+        (comm_bytes.rank_counts, (*nccl_args, comm_bytes.DTYPE, dev.type), {}),
+        (scaling.rank_fit, (1,), dict(TOOLS_SCALING, device=dev.type))],
+        device=dev.type, backend="nccl")
+    world_s["nccl (1, 1)"] = time.perf_counter() - t0
+    nccl = comm_bytes.report([counts], *nccl_args, "nccl", dev)
+    if not nccl["engines"]["a2a"]["ops"]:
+        raise AssertionError(f"tools comm_bytes under NCCL: {nccl}")
+    reports["comm_bytes_nccl"] = nccl
+    emit({"phase": "tools", "tool": "comm_bytes", **nccl})
+    scale = scaling.report({1: fit}, **TOOLS_SCALING, backend="nccl", device=dev)
+    (one,) = scale["measured"]
+    if scale["kind"] != "measured" or not one["launches"].get("dot_interaction"):
+        raise AssertionError(f"tools scaling: {scale}")
+    finite_ms("scaling", 1e3 / one["examples_per_s"])
+    reports["scaling"] = scale
+    emit({"phase": "tools", "tool": "scaling", **scale})
+    emit({"phase": "tools", "tool": "worlds", "seconds": world_s})
+    for k, v in one["launches"].items():
+        launches[k] += v
+    return {"launches": launches, "reports": reports}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4748,6 +4871,7 @@ def main() -> int:
     protocol_mt, slice_s["protocol mt"] = timed(phase_protocol_mt, dev)
     files, slice_s["files"] = timed(phase_files, dev)
     multidevice, slice_s["multidevice"] = timed(phase_multidevice, rng, dev)
+    tools, slice_s["tools"] = timed(phase_tools, dev)
     emit({"phase": "slice seconds", **slice_s, "total": sum(slice_s.values())})
     for name in ("embedding_adam", "embedding_rowwise_adagrad"):
         timing[name].update(multidevice["timing"][name])
@@ -4785,7 +4909,8 @@ def main() -> int:
             *two_tower.values(), *({"launches": r["train_launches"]} for r in two_tower.values()),
             *cli_runs.values(), *protocol_seq.values(), ncf, *din.values(),
             *multitask.values(), *protocol_mt.values(),
-            *(r for r in files.values() if "launches" in r), *multidevice["runs"].values()]
+            *(r for r in files.values() if "launches" in r), *multidevice["runs"].values(),
+            tools]
     for name, (source, replaces) in sources.items():
         t = timing[name]
         kernels.append({

@@ -1,8 +1,8 @@
 """Weights and optimizer state from the JAX package's layout into the port.
 
 ``params`` is the flax ``params`` tree of a JAX model (the CTR models,
-SASRec, YoutubeDNN, MIND, the two towers, FM-match, NCF, ESMM, MMoE, PLE;
-DIN's also takes its ``batch_stats``) as
+SASRec, YoutubeDNN, MIND, the two towers, FM-match, NCF, ESMM, MMoE, PLE,
+the dense probe's ``DenseTail``; DIN's also takes its ``batch_stats``) as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 leaves may
 carry numpy's ``bfloat16`` extension dtype).  Nothing here imports JAX:
 the tree is plain data, and a seeded numpy tree in the same layout works
@@ -96,6 +96,14 @@ def params_from_jax(params: dict, schema: FeatureSchema, model) -> dict:
     for i, (name, module) in enumerate(towers):
         state.update(_tower(name, params[f"{kind}_{i}"], module))
     return state
+
+
+def dense_tail_params_from_jax(params: dict, tail) -> dict:
+    """The flax ``DenseTail``'s params (``recsys_tpu/tools/dense_probe.py``:
+    ``MLP_0`` the bottom tower, ``MLP_1`` the top) -> the state dict of
+    ``tools.dense_probe.DenseTail``."""
+    return {**_tower("bottom", params["MLP_0"], tail.bottom),
+            **_tower("top", params["MLP_1"], tail.top)}
 
 
 def embedding_state_from_jax(emb_state: dict, schema: FeatureSchema, model) -> dict:

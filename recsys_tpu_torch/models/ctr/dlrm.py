@@ -85,7 +85,12 @@ class DLRM(nn.Module):
         field_embs = self.embedding(sparse)
         if self.compute_dtype is not None:
             field_embs = field_embs.to(self.compute_dtype)
-        nm, b = self.dense_microbatch, sparse.shape[0]
+        return self.dense_tail(dense, field_embs)
+
+    def dense_tail(self, dense, field_embs) -> torch.Tensor:
+        """f32 logits from the dense features and the (B, F, D) field
+        embeddings in the compute dtype: the step less its lookup."""
+        nm, b = self.dense_microbatch, field_embs.shape[0]
         if nm <= 1 or b % nm:
             logits = self._tail(dense, field_embs)
         else:

@@ -17,12 +17,21 @@ several ranks on one card.  ``AllReduceSum``, ``AllToAll`` and ``AllGatherCols``
 are the ones with a gradient, each a ``torch.autograd.Function`` with its
 backward written out.
 
+Inside ``with mesh.tally() as ops:`` every collective of this rank on
+``mesh`` adds one ``count`` and its result's bytes to ``ops[kind]``, under
+the kind names of the XLA HLO the JAX package counts
+(``tools/comm_bytes.py``): ``all-reduce``, ``all-gather``, ``all-to-all``,
+and ``collective-permute`` for a broadcast (one rank's value sent to the
+others).  Bytes are the result's in its own dtype and shape, whatever gloo
+stages; with no tally open a collective counts nothing.
+
 Batches: under the GLOBAL data contract every rank holds the global batch
 and keeps its data rows (``shard_batch``); under the LOCAL contract each
 rank is given only the rows of its data shard, and keeps them all.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -83,6 +92,25 @@ class Mesh:
                                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
         self.rank = dist.get_rank()
         self._coords = {DATA_AXIS: self.rank // model, MODEL_AXIS: self.rank % model}
+        self._tally = None  # {kind: {'count', 'bytes'}} while a tally is open
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Count this rank's collectives on the mesh inside the block: yields
+        {kind: {'count': calls, 'bytes': result bytes}}, filled as they run."""
+        if self._tally is not None:
+            raise RuntimeError("a tally is already open on this mesh")
+        self._tally = ops = {}
+        try:
+            yield ops
+        finally:
+            self._tally = None
+
+    def _count(self, kind: str, numel: int, dtype: torch.dtype) -> None:
+        if self._tally is not None:
+            e = self._tally.setdefault(kind, {"count": 0, "bytes": 0})
+            e["count"] += 1
+            e["bytes"] += numel * dtype.itemsize
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -161,6 +189,7 @@ def _wire(x: torch.Tensor, mesh: Mesh, reduce: bool = False):
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The sum (or ``op``) of ``x`` over ``axis``, a new tensor."""
+    mesh._count("all-reduce", x.numel(), x.dtype)
     y, back = _wire(x, mesh, reduce=True)
     y = y.clone() if y.data_ptr() == x.data_ptr() else y
     dist.all_reduce(y, op=op, group=mesh.group(axis))
@@ -169,6 +198,7 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op=dist.ReduceOp.SUM) -> 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """The ranks' ``x`` of ``axis`` concatenated along ``dim``, in axis order."""
+    mesh._count("all-gather", x.numel() * mesh.size(axis), x.dtype)
     y, back = _wire(x, mesh)
     parts = [torch.empty_like(y) for _ in range(mesh.size(axis))]
     dist.all_gather(parts, y, group=mesh.group(axis))
@@ -181,6 +211,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, async_op: bool = False):
     Returns (result, wait): ``wait()`` must run before the result is read
     (with ``async_op``, the exchange runs meanwhile; staged through the
     host it has already run)."""
+    mesh._count("all-to-all", x.numel(), x.dtype)
     y, back = _wire(x, mesh)
     out = torch.empty_like(y)
     if async_op and not mesh.stage:
@@ -194,6 +225,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, async_op: bool = False):
 def broadcast_(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> None:
     """Overwrite ``x`` in place with its value on the first rank of this
     rank's ``axis`` group (of the whole world when ``axis`` is None)."""
+    mesh._count("collective-permute", x.numel(), x.dtype)
     y, back = _wire(x, mesh)
     if axis is None:
         dist.broadcast(y, src=0)

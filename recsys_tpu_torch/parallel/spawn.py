@@ -6,7 +6,11 @@ start method: a fresh interpreter each, importing only ``fn``'s module),
 joins them into one process group through a file store in a temporary
 directory, calls ``fn(*args)`` on each and returns the ranks' results in
 rank order.  ``fn`` must be a module-level function; its arguments and
-result are pickled.  A rank that raises makes ``spawn`` raise.
+result are pickled, through a file in that directory: the start method
+writes each process's arguments into a pipe that the process reads only
+after importing the main module (and torch), so arguments larger than the
+pipe holds, passed there, would start the ranks one after another.  A
+rank that raises makes ``spawn`` raise.
 """
 from __future__ import annotations
 
@@ -18,12 +22,13 @@ import tempfile
 import torch
 
 
-def _rank_main(rank: int, fn, world: int, tmp: str, device: str, backend: str | None,
-               args: tuple) -> None:
+def _rank_main(rank: int, world: int, tmp: str, device: str, backend: str | None) -> None:
     import torch.distributed as dist
 
     from recsys_tpu_torch.parallel.mesh import init_distributed
 
+    with open(os.path.join(tmp, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     torch.set_num_threads(1)
     init_distributed(device, backend=backend, init_method=f"file://{tmp}/store", rank=rank,
                      world_size=world)
@@ -46,8 +51,10 @@ def spawn(fn, world: int, *args, device: str = "cpu", backend: str | None = None
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank_main, args=(fn, world, tmp, device, backend, args),
-                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, args), f)
+        mp.start_processes(_rank_main, args=(world, tmp, device, backend), nprocs=world,
+                           start_method="spawn")
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

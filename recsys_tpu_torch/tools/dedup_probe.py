@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.kernels import default_device
-from recsys_tpu_torch.tools.roofline import BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card
-from recsys_tpu_torch.tools.stream_probe import timer
+from recsys_tpu_torch.tools.roofline import BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card, timer
 
 B = BATCH
 F = NUM_SPARSE

@@ -31,8 +31,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.kernels import default_device, dispatch
-from recsys_tpu_torch.tools.roofline import BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card
-from recsys_tpu_torch.tools.stream_probe import timer
+from recsys_tpu_torch.tools.roofline import BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card, timer
 
 NUM_TABLES = NUM_SPARSE
 D = EMBED_DIM

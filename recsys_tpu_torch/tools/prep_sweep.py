@@ -40,8 +40,7 @@ from recsys_tpu_torch.core.features import DenseFeature, FeatureSchema, SparseFe
 from recsys_tpu_torch.kernels import default_device, dispatch
 from recsys_tpu_torch.models.ctr.dlrm import DLRM
 from recsys_tpu_torch.tools.dedup_probe import zipf_ids
-from recsys_tpu_torch.tools.roofline import SPECS, card
-from recsys_tpu_torch.tools.stream_probe import timer
+from recsys_tpu_torch.tools.roofline import SPECS, card, timer
 from recsys_tpu_torch.train import streaming_embed
 from recsys_tpu_torch.train.loop import Trainer
 

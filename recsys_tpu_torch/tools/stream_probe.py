@@ -32,34 +32,16 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import torch
 
 from recsys_tpu_torch.kernels import default_device, dispatch
 from recsys_tpu_torch.kernels import probes as probe_ref
 from recsys_tpu_torch.tools.roofline import (BATCH, EMBED_DIM, NUM_SPARSE, VOCAB, card,
-                                             chain_floor_ms, cuda_ms, spec)
+                                             chain_floor_ms, spec, timer)
 
 WIDE = 128          # the JAX probe's physical row: 8 ids of 16 packed
 PERROW_ROWS = 8192  # the JAX probe's VMEM block of rows
-
-
-def timer(device: torch.device):
-    """ms per call of ``fn``: CUDA events on the card, the host clock on
-    the CPU."""
-    if device.type == "cuda":
-        return cuda_ms
-
-    def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-        if warmup:
-            fn()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-
-    return host_ms
 
 
 def _tables(gen, device, n, rows, width, dtype=torch.float32):

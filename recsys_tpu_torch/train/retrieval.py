@@ -43,6 +43,12 @@ def topk_scores(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,
         query_embs, item_embs = _l2(query_embs), _l2(item_embs)
     if topk_ref.in_domain(k, *item_embs.shape):
         return dispatch.topk_scores_fused(query_embs, item_embs, k)
+    return score_matrix_topk(query_embs, item_embs, k)
+
+
+def score_matrix_topk(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10):
+    """``topk_scores``'s route outside the kernel's domain: the whole (Q, N)
+    f32 score matrix and a stable sort of each row."""
     return _best(query_embs.float() @ item_embs.float().T, k)
 
 
@@ -87,6 +93,14 @@ def topk_scores_streaming(query_embs: torch.Tensor, item_embs: torch.Tensor, k: 
         query_embs, item_embs = _l2(query_embs), _l2(item_embs)
     if topk_ref.in_domain(k, *item_embs.shape):
         return dispatch.topk_scores_fused(query_embs, item_embs, k)
+    return tile_scan_topk(query_embs, item_embs, k, tile)
+
+
+def tile_scan_topk(query_embs: torch.Tensor, item_embs: torch.Tensor, k: int = 10,
+                   tile: int = 8192):
+    """``topk_scores_streaming``'s route outside the kernel's domain: the
+    catalog in tiles of ``tile`` items, each tile's scores merged into the
+    running best k by a stable sort."""
     q = query_embs.float()
     best_v = torch.full((q.shape[0], k), float("-inf"), device=q.device)
     best_i = torch.zeros((q.shape[0], k), dtype=torch.int32, device=q.device)
