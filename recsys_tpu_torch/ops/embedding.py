@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from recsys_tpu_torch.core import spans
 from recsys_tpu_torch.core.features import FeatureSchema
 from recsys_tpu_torch.kernels import dispatch
 from recsys_tpu_torch.kernels import embedding as emb_ops
@@ -116,7 +117,8 @@ class StackedEmbedding(nn.Module):
     output becomes a leaf that requires grad, kept as ``self.tap``.  After
     ``backward`` its ``.grad`` is the per-occurrence (B, F, D) cotangent of
     the gathered rows, in the table dtype; no dense (V, D) table gradient
-    is ever allocated.
+    is ever allocated.  ``forward`` runs inside the ``embedding.gather``
+    span (``core/spans.py``).
 
     ``mesh`` (a ``parallel.mesh.Mesh``) builds each table whose rows the
     model axis divides as this rank's row shard only (``table_shards``,
@@ -188,14 +190,15 @@ class StackedEmbedding(nn.Module):
         return list(self._groups)
 
     def forward(self, sparse_ids: torch.Tensor) -> torch.Tensor:
-        tapped = (self.perturb_out and torch.is_grad_enabled()
-                  and not any(self.table(g).requires_grad for g in self._groups))
-        if tapped:
-            with torch.no_grad():
-                out = self._gather(sparse_ids)
-            self.tap = out.requires_grad_()
-            return out
-        return self._gather(sparse_ids)
+        with spans.span("embedding.gather"):
+            tapped = (self.perturb_out and torch.is_grad_enabled()
+                      and not any(self.table(g).requires_grad for g in self._groups))
+            if tapped:
+                with torch.no_grad():
+                    out = self._gather(sparse_ids)
+                self.tap = out.requires_grad_()
+                return out
+            return self._gather(sparse_ids)
 
     def lookup(self, field_name: str, ids: torch.Tensor) -> torch.Tensor:
         """Embed ``ids`` (any shape) from ``field_name``'s table slice."""

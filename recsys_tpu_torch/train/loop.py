@@ -10,6 +10,19 @@ validation and the fused embedding optimizers' host prep run on the
 prefetch thread, ahead of the device.  Serving runs under
 ``torch.inference_mode()``.
 
+``train_step`` opens the program's spans (``train/profiling.py``), which
+record only inside ``profiling.recording()`` or ``profiling.trace``: one
+``train_step`` root a step, its ``step`` the optimizer step it takes, over
+``train_step.prep`` (the fused optimizers' host prep, where it runs: inside
+the call for a bare batch, on the prefetch thread under ``fit``),
+``train_step.copy`` (``_to_device``, counting ``bytes_blocking``, the
+numpy arrays' pageable copies, and ``bytes_async``, the prep's
+``non_blocking`` ones), ``train_step.forward`` (the model and the loss;
+``embedding.gather`` inside it), ``train_step.backward`` (with the
+gradients' sum on a mesh), ``train_step.dense_adam`` (``zero_grad``, then
+``optimizer.step()``) and ``train_step.embed_update`` (the embedding
+optimizer).
+
 On a (data, model) mesh (``parallel/mesh.py``) a Trainer runs in each
 process of the group, one device each.  Tables whose rows the model axis
 divides hold this rank's row shard; every other parameter is replicated
@@ -36,6 +49,7 @@ from recsys_tpu_torch.parallel import mesh as mesh_lib
 from recsys_tpu_torch.parallel.sharding_rules import apply_param_shardings
 from recsys_tpu_torch.train import losses as losses_lib
 from recsys_tpu_torch.train import metrics as metrics_lib
+from recsys_tpu_torch.train import profiling
 from recsys_tpu_torch.train import sparse_embed, streaming_embed
 from recsys_tpu_torch.train.checkpoint import BestCheckpointer
 
@@ -207,7 +221,8 @@ class Trainer:
                 raise ValueError(f"{key} ids outside [0, {vocab}) in rows "
                                  f"{start}..{start + valid}")
         if prep is not None:
-            batch.update(prep(batch["sparse"]))
+            with profiling.span("train_step.prep"):
+                batch.update(prep(batch["sparse"]))
         return batch
 
     def _streamed(self, stream, prep: Callable | None = None):
@@ -219,54 +234,78 @@ class Trainer:
             yield self._checked(dict(b), start, rows, prep), rows
             start += rows
 
-    def _to_device(self, batch: dict) -> dict:
+    def _to_device(self, batch: dict, sp=profiling.OFF) -> dict:
         """The batch on the device: numpy arrays copied, tensors (the fused
-        prep's, pinned on the card) copied ``non_blocking``."""
-        return {k: v.to(self.device, non_blocking=True) if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items() if not k.startswith("_")}
+        prep's, pinned on the card) copied ``non_blocking``; the bytes of
+        each kind are counted on ``sp``."""
+        out, blocking, async_ = {}, 0, 0
+        for k, v in batch.items():
+            if k.startswith("_"):
+                continue
+            if isinstance(v, torch.Tensor):
+                async_ += v.nbytes
+                out[k] = v.to(self.device, non_blocking=True)
+            else:
+                v = np.ascontiguousarray(v)
+                blocking += v.nbytes
+                out[k] = torch.from_numpy(v).to(self.device)
+        if sp is not profiling.OFF:
+            sp.count(bytes_blocking=blocking, bytes_async=async_)
+        return out
 
     # -- training ---------------------------------------------------------
     def train_step(self, batch: dict) -> torch.Tensor:
         """One optimizer step on a host batch (numpy arrays; the fused
         embedding optimizers' host prep is added when missing).  Returns
         the loss as a device scalar, without waiting for it."""
-        if self._prep is not None and "embaux0_ids" not in batch:
-            batch = dict(batch, **self._prep(batch["sparse"]))
-        db = self._to_device(self._local(batch))
-        self.model.train()
-        self.step += 1
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(db), db)
-        if self.mesh is None:
-            loss.backward()
-        else:  # the global batch's mean: this rank's share, its gradients summed
-            (loss / self._n_data).backward()
-            self._sum_gradients()
-        self.optimizer.step()
-        if self.embedding is not None:
-            cot = self.embedding.tap.grad
-            if self.embedding_optimizer in FUSED:
-                streaming_embed.apply_updates_fused(
-                    self.tables(), self.emb_state, self.plan, db, cot,
-                    lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay,
-                    kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16,
-                    mesh=self.mesh, shards_by_name=self._shards,
-                    data_contract=self.data_contract)
-            else:
-                ids = db["sparse"]
-                if self.mesh is not None:  # the global batch's ids and cotangent
-                    ids, cot = (mesh_lib.all_gather(x, self.mesh, mesh_lib.DATA_AXIS)
-                                for x in (ids, cot))
-                sparse_embed.apply_updates(
-                    self.tables(), self.emb_state, self.plan, ids, cot,
-                    kind=self.embedding_optimizer, lr=self.embedding_lr, step=self.step,
-                    weight_decay=self.weight_decay, row_offsets=self._row_offsets)
-            self.embedding.tap = None
-        drops = [m.dropped for m in self._a2a if m.dropped is not None]
-        self.last_dropped = sum(drops) if drops else None
-        loss = loss.detach()
-        return loss if self.mesh is None else self._data_sum(loss) / self._n_data
+        with profiling.span("train_step", step=self.step + 1):
+            if self._prep is not None and "embaux0_ids" not in batch:
+                with profiling.span("train_step.prep"):
+                    batch = dict(batch, **self._prep(batch["sparse"]))
+            with profiling.span("train_step.copy") as sp:
+                db = self._to_device(self._local(batch), sp)
+            self.model.train()
+            self.step += 1
+            with profiling.span("train_step.dense_adam"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train_step.forward"):
+                loss = self.loss_fn(self.model(db), db)
+            with profiling.span("train_step.backward"):
+                if self.mesh is None:
+                    loss.backward()
+                else:  # the global batch's mean: this rank's share, its gradients summed
+                    (loss / self._n_data).backward()
+                    self._sum_gradients()
+            with profiling.span("train_step.dense_adam"):
+                self.optimizer.step()
+            if self.embedding is not None:
+                with profiling.span("train_step.embed_update"):
+                    self._update_embeddings(db)
+            drops = [m.dropped for m in self._a2a if m.dropped is not None]
+            self.last_dropped = sum(drops) if drops else None
+            loss = loss.detach()
+            return loss if self.mesh is None else self._data_sum(loss) / self._n_data
+
+    def _update_embeddings(self, db: dict) -> None:
+        """The embedding optimizer's step on the tap's cotangent."""
+        cot = self.embedding.tap.grad
+        if self.embedding_optimizer in FUSED:
+            streaming_embed.apply_updates_fused(
+                self.tables(), self.emb_state, self.plan, db, cot,
+                lr=self.embedding_lr, step=self.step, weight_decay=self.weight_decay,
+                kind=FUSED[self.embedding_optimizer], mm_bf16=self.embedding_fused_bf16,
+                mesh=self.mesh, shards_by_name=self._shards,
+                data_contract=self.data_contract)
+        else:
+            ids = db["sparse"]
+            if self.mesh is not None:  # the global batch's ids and cotangent
+                ids, cot = (mesh_lib.all_gather(x, self.mesh, mesh_lib.DATA_AXIS)
+                            for x in (ids, cot))
+            sparse_embed.apply_updates(
+                self.tables(), self.emb_state, self.plan, ids, cot,
+                kind=self.embedding_optimizer, lr=self.embedding_lr, step=self.step,
+                weight_decay=self.weight_decay, row_offsets=self._row_offsets)
+        self.embedding.tap = None
 
     def _local(self, batch: dict) -> dict:
         """This rank's rows of a host batch, by the data contract."""

@@ -1497,3 +1497,72 @@ def test_checkpoint_saved_and_restored_on_card(cuda, tmp_path, opt):
     np.testing.assert_array_equal(restored.predict(batches[2]), saved.predict(batches[2]))
     torch.testing.assert_close(restored.train_step(batches[2]), saved.train_step(batches[2]),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_a_span_and_the_cards_trace_share_one_clock(cuda):
+    """The spans stamp the clock the profiler puts the card's activity on:
+    a span around a spin kernel's launch opens at or before the kernel
+    starts on the card, and one that ends after a synchronize closes at or
+    after the kernel ends (a device-only trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.train import profiling
+
+    torch.cuda.synchronize()
+    with profiling.recording() as records, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.span("launch"):
+            torch.cuda._sleep(20_000_000)  # about 10 ms of spinning
+        with profiling.span("wait"):
+            torch.cuda.synchronize()
+    launch, wait = records
+    (k,) = [e for e in prof.profiler.kineto_results.events() if "spin_kernel" in e.name()]
+    assert launch.start_ns <= k.start_ns() < k.end_ns() <= wait.end_ns
+    assert k.end_ns() - k.start_ns() > 1_000_000  # the kernel spun, it was no mark
+    assert launch.end_ns < k.end_ns()  # the launch returned before the kernel ended
+
+
+def test_a_card_train_step_copies_the_pinned_prep_without_blocking(cuda):
+    """On the card the fused prep's pinned arrays go ``non_blocking`` and
+    the numpy arrays by blocking copies: the copy span counts each kind's
+    bytes."""
+    from recsys_tpu_torch.train import profiling
+
+    schema, data = synthetic_ctr(num_examples=512, num_dense=13, num_sparse=26,
+                                 vocab_size=1000, embed_dim=16, seed=5)
+    torch.manual_seed(0)
+    tt = Trainer(DLRM(schema, sparse_embed_grads=True, device=cuda),
+                 embedding_optimizer="fused_adam")
+    prep = tt._prep(data["sparse"])
+    assert all(t.is_pinned() for t in prep.values())
+    with profiling.recording() as records:
+        tt.train_step(data)
+    (copy,) = [r for r in records if r.name == "train_step.copy"]
+    assert copy.counts == {"bytes_blocking": sum(v.nbytes for v in data.values()),
+                           "bytes_async": sum(t.nbytes for t in prep.values())}
+    assert [r.name for r in records].count("train_step") == 1
+
+
+def test_trace_writes_the_spans_beside_the_cards_kernels(cuda, tmp_path):
+    """``profiling.trace`` on the card: ``trace.json`` holds each step's
+    spans and the kernels, on one time axis (a step's kernels start after
+    its span opens)."""
+    import json
+
+    from recsys_tpu_torch.train import profiling
+
+    schema, data = synthetic_ctr(num_examples=512, num_dense=13, num_sparse=26,
+                                 vocab_size=1000, embed_dim=16, seed=6)
+    torch.manual_seed(0)
+    tt = Trainer(DLRM(schema, sparse_embed_grads=True, device=cuda),
+                 embedding_optimizer="fused_adam")
+    tt.train_step(data)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        tt.train_step(data)
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "span"}
+    assert {"train_step", "train_step.copy", "embedding.gather"} <= spans.keys()
+    assert spans["train_step"]["args"]["step"] == 2
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels and min(k["ts"] for k in kernels) >= spans["train_step"]["ts"]

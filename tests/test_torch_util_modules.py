@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's modules that only its tests call:
 ``core/config.py`` (a config file written by either package loads in the
-other), ``train/profiling.py`` (``trace``, ``annotate``, ``StepTimer``),
+other), ``train/profiling.py`` (``trace``, with the program's spans),
 ``losses.l2_regularization`` and ``data/synthetic.py::synthetic_sequence``,
 each against the JAX one on the CPU."""
 import dataclasses
@@ -18,7 +18,6 @@ import torch
 from recsys_tpu.core import config as jax_config
 from recsys_tpu.data.synthetic import synthetic_sequence as jax_synthetic_sequence
 from recsys_tpu.train import losses as jax_losses
-from recsys_tpu.train.profiling import StepTimer as JaxStepTimer
 from recsys_tpu_torch.core import config
 from recsys_tpu_torch.data.synthetic import synthetic_sequence
 from recsys_tpu_torch.train import losses, profiling
@@ -70,26 +69,20 @@ def test_l2_regularization_matches_jax():
     assert float(losses.l2_regularization([], 1.0)) == 0.0
 
 
-def test_step_timer_summary_on_the_cpu():
-    timer, jax_timer = profiling.StepTimer(window=3, sync_every=2), JaxStepTimer(window=3)
-    assert timer.summary() == {} == jax_timer.summary()
-    for i in range(5):
-        with timer.step({"loss": torch.tensor(float(i))}):
-            sum(range(1000))
-        with jax_timer.step():
-            pass
-    s = timer.summary()
-    assert s.keys() == jax_timer.summary().keys()
-    assert s["steps"] == 5 and len(timer.times_ms) == 3
-    assert 0.0 < s["p50_ms"] <= s["p90_ms"] and s["mean_ms"] > 0.0
-
-
 def test_trace_writes_a_chrome_trace_with_the_annotations(tmp_path):
+    """The program's spans land in ``trace.json`` on the profiler's time
+    axis: the span brackets the matmul it ran."""
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("prep span"):
+        with profiling.span("prep span", step=4) as sp:
             torch.ones(64, 64) @ torch.ones(64, 64)
+            sp.count(rows=64)
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "prep span" for e in events)
+    (got,) = [e for e in events if e.get("name") == "prep span"]
+    assert got["cat"] == "span" and got["args"] == {"step": 4, "parent": None, "rows": 64}
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert got["tid"] == mm["tid"] and got["pid"] == mm["pid"]
+    assert got["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= got["ts"] + got["dur"]
+    assert profiling.span("after") is profiling.OFF
 
 
 def test_synthetic_sequence_is_bit_equal_to_jax():
